@@ -1,0 +1,57 @@
+"""Cappuccino core on PyTorch: the counterpart of ``repro.core``.
+
+- layout:        map-major data reordering (§IV-B)
+- precision:     inexact computing modes (§IV-C)
+- parallelism:   the OLP library convolution (§IV-A)
+- network:       network-description DAG and the planned executor
+- graph:         graph passes -> fused dispatch groups
+- plan:          per-layer / per-group execution plans (Stage A's artifact)
+- planner:       static cost model (Stage A)
+- layer_ops:     the layer-op / implementation registries
+- mode_selector: per-layer inexact-mode analysis (Stage C)
+- synthesizer:   the end-to-end pipeline
+"""
+from .graph import (DEFAULT_PASSES, DispatchStats, FusedGroup, GraphProgram,
+                    canonicalize, eliminate_dead_layers, execute_graph,
+                    fuse_conv_epilogues, fuse_pointwise_chains, lower_network)
+from .layer_ops import (CONV_IMPLS as CONV_IMPL_REGISTRY, DENSE_IMPLS,
+                        EPILOGUE_IMPLS, LAYER_OPS, apply_group, apply_layer,
+                        register_conv_impl, register_dense_impl,
+                        register_epilogue_impl, register_layer_op)
+from .layout import (LANES, from_map_major, num_groups, to_map_major,
+                     weights_to_map_major)
+from .mode_selector import ModeSelectionReport, refine_plan, select_modes
+from .network import (Layer, NetworkDescription, collect_activations,
+                      run_network)
+from .parallelism import Parallelism, conv_olp, conv_policy
+from .plan import (DEFAULT_LAYER_PLAN, IMPL_DEFAULT, IMPL_KERNEL, IMPL_XLA,
+                   ExecutionPlan, GroupPlan, IterationRecord, LayerPlan,
+                   SynthesisReport, ValidationRecord, enforce_precise_xla)
+from .planner import PlannerConfig, plan_network, trace_shapes
+from .precision import (MODES_FASTEST_FIRST, ComputeMode, full_f32, mode_dot,
+                        mode_tolerance, prepare_operand, prepare_weight,
+                        resolve_weight)
+from .synthesizer import (MAX_SYNTHESIS_ITERATIONS, BatchProgram,
+                          SynthesizedProgram, synthesize)
+
+__all__ = [
+    "DEFAULT_PASSES", "DispatchStats", "FusedGroup", "GraphProgram",
+    "canonicalize", "eliminate_dead_layers", "execute_graph",
+    "fuse_conv_epilogues", "fuse_pointwise_chains", "lower_network",
+    "CONV_IMPL_REGISTRY", "DENSE_IMPLS", "EPILOGUE_IMPLS", "LAYER_OPS",
+    "apply_group", "apply_layer", "register_conv_impl", "register_dense_impl",
+    "register_epilogue_impl", "register_layer_op",
+    "LANES", "from_map_major", "num_groups", "to_map_major",
+    "weights_to_map_major",
+    "ModeSelectionReport", "refine_plan", "select_modes",
+    "Layer", "NetworkDescription", "collect_activations", "run_network",
+    "Parallelism", "conv_olp", "conv_policy",
+    "DEFAULT_LAYER_PLAN", "IMPL_DEFAULT", "IMPL_KERNEL", "IMPL_XLA",
+    "ExecutionPlan", "GroupPlan", "IterationRecord", "LayerPlan",
+    "SynthesisReport", "ValidationRecord", "enforce_precise_xla",
+    "PlannerConfig", "plan_network", "trace_shapes",
+    "MODES_FASTEST_FIRST", "ComputeMode", "full_f32", "mode_dot",
+    "mode_tolerance", "prepare_operand", "prepare_weight", "resolve_weight",
+    "BatchProgram", "MAX_SYNTHESIS_ITERATIONS", "SynthesizedProgram",
+    "synthesize",
+]

@@ -1,0 +1,396 @@
+"""The Cappuccino synthesis pipeline (paper §III, Fig. 3) on PyTorch.
+
+The counterpart of ``repro.core.synthesizer``.  Inputs: a
+:class:`NetworkDescription`, its params (a dict of tensors on the device the
+program runs on) and, optionally, a validation set (images, labels).
+
+  A. plan: lower to fused groups, then the static planner;
+  B. prepare the weights for each layer's compute mode;
+  C. with a validation set, the fixed-point loop (plan -> mode probe ->
+     re-plan) and the final validation gate on the emitted program, which
+     demotes modes toward all-PRECISE until the budget holds;
+  D. :meth:`SynthesizedProgram.for_batch` fixes the input shape, runs one
+     warm-up (which builds and loads the kernels) and counts it in
+     ``stage_d_compiles``.  CUDA graph capture is later work.
+
+Not ported yet (ROADMAP.md queue 1): ``tracer=``, ``registry=``,
+``artifact_store=``, ``autotune=`` and the int8 calibration behind
+``allow_int8=True``, which raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from ..device.profile import DeviceProfile, resolve_profile
+from .graph import lower_network
+from .layout import LANES
+from .mode_selector import ModeSelectionReport, refine_plan
+from .network import NetworkDescription, run_network
+from .parallelism import Parallelism
+from .plan import (ExecutionPlan, IterationRecord, SynthesisReport,
+                   ValidationRecord, enforce_precise_xla)
+from .planner import PlannerConfig, plan_network
+from .precision import (INT8_NOT_PORTED, MODES_FASTEST_FIRST, ComputeMode,
+                        prepare_weight)
+
+MAX_SYNTHESIS_ITERATIONS = 4
+
+#: Float slack for the validation gate's degradation comparison.
+_GATE_EPS = 1e-9
+
+
+@dataclass
+class BatchProgram:
+    """One Stage-D artifact: the program for a fixed (B, C, H, W) input."""
+    batch: int
+    input_shape: Tuple[int, ...]
+    plan_fingerprint: str
+    compile_seconds: float
+    _forward: Callable[[torch.Tensor], torch.Tensor]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if tuple(x.shape) != self.input_shape:
+            raise ValueError(
+                f"BatchProgram built for {self.input_shape}, got "
+                f"{tuple(x.shape)}; use SynthesizedProgram.for_batch"
+                f"({x.shape[0]}) or the serving batcher")
+        return self._forward(x)
+
+
+@dataclass
+class SynthesizedProgram:
+    """The plan-time synthesis artifact (Stages A–C) and its metadata."""
+    net: NetworkDescription
+    plan: ExecutionPlan
+    modes: Dict[str, ComputeMode]
+    parallelism: Parallelism
+    mode_report: Optional[ModeSelectionReport]
+    synthesis_seconds: float
+    synthesis_report: Optional[SynthesisReport] = None
+    prepared: Dict[str, Dict[str, torch.Tensor]] = field(repr=False,
+                                                         default_factory=dict)
+    vector_width: int = LANES
+    input_dtype: torch.dtype = torch.float32
+    stage_d_compiles: int = 0
+    _params_digest: Optional[str] = field(default=None, repr=False)
+
+    @property
+    def device(self) -> torch.device:
+        """The device the prepared weights (and so the program) live on."""
+        for p in self.prepared.values():
+            return p["w"].device
+        return torch.device("cpu")
+
+    def infer(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward pass with the plan baked in, for any batch size."""
+        return run_network(self.net, self.prepared, x, plan=self.plan)
+
+    def params_digest(self) -> str:
+        """Content hash of the prepared weights (Stage B's output)."""
+        if self._params_digest is None:
+            h = hashlib.sha256()
+            for name in sorted(self.prepared):
+                h.update(name.encode())
+                for key in sorted(self.prepared[name]):
+                    t = self.prepared[name][key].detach().contiguous().cpu()
+                    h.update(f"{key}:{t.dtype}:{tuple(t.shape)}".encode())
+                    h.update(t.view(torch.uint8).numpy().tobytes())
+            self._params_digest = h.hexdigest()[:16]
+        return self._params_digest
+
+    def fingerprint(self) -> str:
+        return f"{self.plan.fingerprint()}-{self.params_digest()}"
+
+    def for_batch(self, batch: int) -> BatchProgram:
+        """Stage D alone: fix the input shape to ``(batch, C, H, W)`` and run
+        one warm-up on zeros (kernel builds and loads happen here), counted
+        in ``stage_d_compiles``."""
+        if batch < 1:
+            raise ValueError(f"batch must be >= 1, got {batch}")
+        shape = (batch, *self.net.input_shape)
+        dev = self.device
+        t0 = time.perf_counter()
+        self.infer(torch.zeros(shape, dtype=self.input_dtype, device=dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.stage_d_compiles += 1
+        return BatchProgram(batch=batch, input_shape=shape,
+                            plan_fingerprint=self.plan.fingerprint(),
+                            compile_seconds=time.perf_counter() - t0,
+                            _forward=self.infer)
+
+    def report(self) -> str:
+        lines = [f"== Cappuccino synthesis report: {self.net.name} ==",
+                 f"device           : {self.plan.profile.name} "
+                 f"[{self.plan.profile.source}] "
+                 f"(ridge {self.plan.profile.ridge():.0f} FLOPs/B), "
+                 f"tensors on {self.device}",
+                 f"parallelism      : {self.parallelism.value} (thread level)"
+                 f" + vectorized MAC (intra-thread, u={self.vector_width})",
+                 f"layers           : {len(self.net.layers)}"
+                 f" ({len(self.net.param_layers)} parametric)",
+                 f"plan origin      : {self.plan.origin}",
+                 f"synthesis time   : {self.synthesis_seconds:.2f}s",
+                 "dispatch         : "
+                 + (f"fused graph ({len(self.plan.graph.groups)} groups / "
+                    f"{self.plan.graph.n_layers} layers)"
+                    if self.plan.graph is not None else "layer walk"),
+                 "execution plan:",
+                 "  " + self.plan.table().replace("\n", "\n  "),
+                 "layer modes:"]
+        for l in self.net.layers:
+            if l.is_inexactable:
+                lines.append(f"  {l.name:28s} {self.modes[l.name].value}")
+        if self.mode_report is not None:
+            lines.append("mode selection:")
+            lines.append("  " + self.mode_report.summary().replace("\n", "\n  "))
+        if self.synthesis_report is not None:
+            lines.append("fixed-point synthesis:")
+            lines.append("  " + self.synthesis_report.summary()
+                         .replace("\n", "\n  "))
+        if self.plan.graph is not None:
+            lines.append("fusion:")
+            lines.append("  " + self.plan.graph.report().replace("\n", "\n  "))
+        return "\n".join(lines)
+
+
+def _top1(logits: torch.Tensor, labels: torch.Tensor) -> float:
+    pred = torch.argmax(logits, dim=-1)
+    return float((pred == labels.to(pred.device)).float().mean())
+
+
+def _accuracy_eval(net, params, images, labels):
+    """Top-1 accuracy under a candidate plan (modes overlaid per probe).
+    Casting-only modes need no weight preparation: the ops cast operands."""
+    def evaluate_plan(p: ExecutionPlan) -> float:
+        return _top1(run_network(net, params, images, plan=p), labels)
+    return evaluate_plan
+
+
+def _modes_key(modes: Dict[str, ComputeMode]) -> Tuple[Tuple[str, str], ...]:
+    return tuple(sorted((n, m.value) for n, m in modes.items()))
+
+
+def _replan(net: NetworkDescription, base: ExecutionPlan,
+            modes: Dict[str, ComputeMode],
+            planner_config: Optional[PlannerConfig]) -> ExecutionPlan:
+    """Fold a mode assignment into a plan: a planner plan is re-planned under
+    the modes; a uniform or hand-written plan keeps its impls, with the
+    PRECISE -> library invariant re-applied.  The graph is kept either way."""
+    if base.origin == "planner":
+        return plan_network(net, modes=modes, config=planner_config,
+                            graph=base.graph)
+    overlaid, _ = enforce_precise_xla(base.with_modes(modes))
+    return overlaid
+
+
+def _prepare_params(net: NetworkDescription, params,
+                    modes: Dict[str, ComputeMode]):
+    """Stage B: weights cast to each layer's operand type, biases to f32.
+    The map-major reorder happens in the kernel wrappers."""
+    prepared = {}
+    for l in net.param_layers:
+        p = dict(params[l.name])
+        p["w"] = prepare_weight(p["w"], modes[l.name])
+        if "b" in p:
+            p["b"] = p["b"].float()
+        prepared[l.name] = p
+    return prepared
+
+
+def _program_accuracy(program: "SynthesizedProgram", images, labels) -> float:
+    """Top-1 accuracy of the emitted program (``program.infer``)."""
+    return _top1(program.infer(images), labels)
+
+
+def _demote_modes(modes: Dict[str, ComputeMode]) -> Dict[str, ComputeMode]:
+    order = list(MODES_FASTEST_FIRST)
+    return {n: order[min(order.index(m) + 1, len(order) - 1)]
+            for n, m in modes.items()}
+
+
+def _dominant_policy(net: NetworkDescription, plan: ExecutionPlan) -> Parallelism:
+    policies = {plan.for_layer(l.name).parallelism for l in net.param_layers}
+    return policies.pop() if len(policies) == 1 else Parallelism.OLP
+
+
+def synthesize(net: NetworkDescription,
+               params: Dict[str, Dict[str, torch.Tensor]],
+               validation: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               *,
+               max_degradation: float = 0.0,
+               allow_int8: bool = False,
+               device: "Optional[str | DeviceProfile]" = None,
+               plan: Optional[ExecutionPlan] = None,
+               planner_config: Optional[PlannerConfig] = None,
+               max_iterations: int = MAX_SYNTHESIS_ITERATIONS,
+               forced_mode: Optional[ComputeMode] = None,
+               fuse: bool = True) -> SynthesizedProgram:
+    """Run the pipeline and return the synthesized program.
+
+    ``device=`` names the synthesis target's :class:`DeviceProfile` (a
+    profile, a registry name such as ``"h100"``, or ``"auto"``), as in the
+    JAX package; the program runs where ``params`` live.  ``forced_mode``
+    pins every conv and dense layer and skips Stage C and the gate; without
+    a validation set every such layer is RELAXED.  With one, Stages A and C
+    run as the fixed-point loop and the final gate measures the emitted
+    program against ``max_degradation``.  ``fuse`` lowers through the graph
+    passes first (one dispatch per fused group).
+    """
+    t0 = time.perf_counter()
+    if max_iterations < 1:
+        raise ValueError(f"max_iterations must be >= 1, got {max_iterations}")
+    if allow_int8 or forced_mode is ComputeMode.IMPRECISE_INT8:
+        raise NotImplementedError(INT8_NOT_PORTED)
+
+    if device is not None:
+        profile = resolve_profile(device)
+        if plan is not None and plan.profile.identity() != profile.identity():
+            raise ValueError(
+                f"plan= was drawn for device {plan.profile.name!r} but "
+                f"device= names {profile.name!r}; re-plan for the target "
+                "or drop one of the arguments")
+        planner_config = dataclasses.replace(planner_config or PlannerConfig(),
+                                             profile=profile)
+    elif planner_config is None and plan is not None:
+        planner_config = PlannerConfig(profile=plan.profile)
+    elif (plan is not None and planner_config is not None
+          and plan.profile.identity() != planner_config.profile.identity()):
+        raise ValueError(
+            f"plan= was drawn for device {plan.profile.name!r} but "
+            f"planner_config= targets {planner_config.profile.name!r}; "
+            "align the two profiles or re-plan for the target")
+
+    # Stage A.
+    if plan is None:
+        graph = lower_network(net) if fuse else None
+        plan = plan_network(net, config=planner_config, graph=graph)
+
+    if forced_mode is not None or validation is None:
+        modes = {n: forced_mode or ComputeMode.RELAXED
+                 for n in net.inexactable_layers}
+        plan = _replan(net, plan, modes, planner_config)
+        synthesis_report = SynthesisReport(
+            converged=True, max_iterations=max_iterations,
+            gate_skipped_reason=("forced_mode pins Stage C"
+                                 if forced_mode is not None
+                                 else "no validation set"))
+        return SynthesizedProgram(
+            net=net, plan=plan, modes=modes,
+            parallelism=_dominant_policy(net, plan), mode_report=None,
+            synthesis_seconds=time.perf_counter() - t0,
+            synthesis_report=synthesis_report,
+            prepared=_prepare_params(net, params, modes))
+
+    # ---- Fixed-point loop: plan -> mode probe -> re-plan -> re-probe ------
+    images, labels = validation
+    evaluate_plan = _accuracy_eval(net, params, images, labels)
+    layer_names = net.inexactable_layers
+    synthesis_report = SynthesisReport(max_iterations=max_iterations)
+    seen: Dict[tuple, int] = {}
+    states: List[Tuple[ExecutionPlan, Dict[str, ComputeMode],
+                       ModeSelectionReport]] = []
+    precise_modes = {n: ComputeMode.PRECISE for n in layer_names}
+    probe_reference: Optional[float] = None
+    probe_reference_fp: Optional[str] = None
+    current = plan
+
+    for i in range(1, max_iterations + 1):
+        # The all-PRECISE reference holds while the plan it would run under
+        # is unchanged.
+        ref_fp = current.with_modes(precise_modes).fingerprint()
+        if ref_fp != probe_reference_fp:
+            probe_reference, probe_reference_fp = None, ref_fp
+        report, probed = refine_plan(current, layer_names, evaluate_plan,
+                                     max_degradation=max_degradation,
+                                     reference=probe_reference)
+        probe_reference = report.reference_metric
+        modes = report.modes
+        next_plan = _replan(net, probed, modes, planner_config)
+        key = (next_plan.fingerprint(), _modes_key(modes))
+        synthesis_report.iterations.append(IterationRecord(
+            index=i, plan_fingerprint=next_plan.fingerprint(),
+            modes=dict(modes), probe_metric=report.final_metric,
+            evaluations=report.evaluations))
+        states.append((next_plan, modes, report))
+
+        # Fixed point: re-planning changed nothing vs what Stage C measured,
+        # or the (fingerprint, modes) pair repeats the previous round.
+        prev_key = (states[-2][0].fingerprint(), _modes_key(states[-2][1])) \
+            if len(states) >= 2 else None
+        if next_plan.fingerprint() == probed.fingerprint() or key == prev_key:
+            synthesis_report.converged = True
+            current, mode_report = next_plan, report
+            break
+        if key in seen:
+            # Cycle: keep the member with the smallest (fingerprint, modes).
+            cycle = states[seen[key]:-1]
+            chosen = min(cycle, key=lambda s: (s[0].fingerprint(),
+                                               _modes_key(s[1])))
+            synthesis_report.tie_broken = True
+            current, modes, mode_report = chosen
+            break
+        seen[key] = len(states) - 1
+        current = next_plan
+    else:
+        chosen = min(states, key=lambda s: (s[0].fingerprint(),
+                                            _modes_key(s[1])))
+        synthesis_report.tie_broken = True
+        current, modes, mode_report = chosen
+
+    # ---- Final validation gate on the emitted dispatch path ---------------
+    ref_plan = _replan(net, current, precise_modes, planner_config)
+    ref_program = SynthesizedProgram(
+        net=net, plan=ref_plan, modes=precise_modes,
+        parallelism=_dominant_policy(net, ref_plan), mode_report=None,
+        synthesis_seconds=0.0,
+        prepared=_prepare_params(net, params, precise_modes))
+    ref_acc = _program_accuracy(ref_program, images, labels)
+    synthesis_report.reference_accuracy = ref_acc
+    acc_memo = {ref_program.fingerprint(): ref_acc}
+
+    cand_plan, cand_modes = current, modes
+    while True:
+        program = SynthesizedProgram(
+            net=net, plan=cand_plan, modes=cand_modes,
+            parallelism=_dominant_policy(net, cand_plan),
+            mode_report=mode_report, synthesis_seconds=0.0,
+            synthesis_report=synthesis_report,
+            prepared=_prepare_params(net, params, cand_modes))
+        fp = program.fingerprint()
+        acc = acc_memo.get(fp)
+        if acc is None:
+            acc = _program_accuracy(program, images, labels)
+            acc_memo[fp] = acc
+        degradation = ref_acc - acc
+        passed = degradation <= max_degradation + _GATE_EPS
+        synthesis_report.validations.append(ValidationRecord(
+            plan_fingerprint=cand_plan.fingerprint(), modes=dict(cand_modes),
+            accuracy=acc, degradation=degradation, passed=passed))
+        if passed:
+            break
+        if all(m is ComputeMode.PRECISE for m in cand_modes.values()):
+            break
+        demoted = _demote_modes(cand_modes)
+        changed = sorted(n for n in cand_modes if demoted[n] is not cand_modes[n])
+        synthesis_report.fallbacks.append(
+            f"measured degradation {degradation:.4f} > budget "
+            f"{max_degradation:.4f}: demoted {', '.join(changed)}")
+        cand_modes = demoted
+        cand_plan = _replan(net, cand_plan, cand_modes, planner_config)
+
+    synthesis_report.validated = passed
+    if synthesis_report.fallbacks and mode_report is not None:
+        program.mode_report = dataclasses.replace(
+            mode_report, modes=dict(cand_modes), final_metric=acc,
+            trace=mode_report.trace + [
+                "validation gate: Stage-C selection superseded by fallback; "
+                f"shipped modes re-measured at {acc:.4f} on the emitted path"])
+    program.synthesis_seconds = time.perf_counter() - t0
+    return program
