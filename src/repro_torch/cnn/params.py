@@ -4,7 +4,9 @@
 ``torch.Generator`` on the CPU and moves them to ``device``, so one seed
 gives the same weights on every device.  ``params_from_numpy`` carries
 weights made elsewhere (the JAX package's, handed over as numpy arrays in
-the parity tests) into the port's dict of tensors.
+the parity tests) into the port's dict of tensors; a prepared int8 weight
+travels as the pair ``(q, scale)`` and arrives as a
+:class:`~repro_torch.core.precision.QuantizedTensor`.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from ..core.network import NetworkDescription
+from ..core.precision import QuantizedTensor
 from ..device.profile import torch_device
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -89,11 +92,18 @@ def init_network_params(net: NetworkDescription,
     return params
 
 
-def params_from_numpy(np_params: Mapping[str, Mapping[str, np.ndarray]],
+def params_from_numpy(np_params: Mapping[str, Mapping[str, object]],
                       device: "str | torch.device | None" = "cuda") -> Params:
     """{layer: {"w": array, "b": array}} of numpy arrays -> the port's dict
-    of tensors on ``device``, values and dtypes unchanged."""
+    of tensors on ``device``, values and dtypes unchanged.  A value that is
+    a pair ``(q, scale)`` (int8 payload, f32 scales) becomes a
+    :class:`QuantizedTensor`."""
     dev = torch_device(device)
-    return {name: {k: torch.from_numpy(np.array(v, copy=True)).to(dev)
+
+    def carry(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+    return {name: {k: (QuantizedTensor(q=carry(v[0]), scale=carry(v[1]))
+                       if isinstance(v, tuple) else carry(v))
                    for k, v in p.items()}
             for name, p in np_params.items()}

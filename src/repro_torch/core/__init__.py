@@ -28,11 +28,14 @@ from .plan import (DEFAULT_LAYER_PLAN, IMPL_DEFAULT, IMPL_KERNEL, IMPL_XLA,
                    ExecutionPlan, GroupPlan, IterationRecord, LayerPlan,
                    SynthesisReport, ValidationRecord, enforce_precise_xla)
 from .planner import PlannerConfig, plan_network, trace_shapes
-from .precision import (MODES_FASTEST_FIRST, ComputeMode, full_f32, mode_dot,
-                        mode_tolerance, prepare_operand, prepare_weight,
-                        resolve_weight)
+from .precision import (MODES_FASTEST_FIRST, ComputeMode, QParams,
+                        QuantizedTensor, calibrate_act_scale,
+                        fake_quantize_act, full_f32, mode_dot, mode_tolerance,
+                        prepare_operand, prepare_weight, quantize_act_int8,
+                        quantize_int8, resolve_weight, weight_channel_axis)
 from .synthesizer import (MAX_SYNTHESIS_ITERATIONS, BatchProgram,
-                          SynthesizedProgram, synthesize)
+                          SynthesizedProgram, calibrate_activation_qparams,
+                          synthesize)
 
 __all__ = [
     "DEFAULT_PASSES", "DispatchStats", "FusedGroup", "GraphProgram",
@@ -50,8 +53,11 @@ __all__ = [
     "ExecutionPlan", "GroupPlan", "IterationRecord", "LayerPlan",
     "SynthesisReport", "ValidationRecord", "enforce_precise_xla",
     "PlannerConfig", "plan_network", "trace_shapes",
-    "MODES_FASTEST_FIRST", "ComputeMode", "full_f32", "mode_dot",
-    "mode_tolerance", "prepare_operand", "prepare_weight", "resolve_weight",
+    "MODES_FASTEST_FIRST", "ComputeMode", "QParams", "QuantizedTensor",
+    "calibrate_act_scale", "fake_quantize_act", "full_f32", "mode_dot",
+    "mode_tolerance", "prepare_operand", "prepare_weight",
+    "quantize_act_int8", "quantize_int8", "resolve_weight",
+    "weight_channel_axis",
     "BatchProgram", "MAX_SYNTHESIS_ITERATIONS", "SynthesizedProgram",
-    "synthesize",
+    "calibrate_activation_qparams", "synthesize",
 ]

@@ -17,7 +17,7 @@ from typing import (TYPE_CHECKING, Dict, Iterable, Iterator, List, Mapping,
 from ..device.profile import DEFAULT_PROFILE, DeviceProfile
 from .layout import LANES
 from .parallelism import NOT_PORTED, Parallelism
-from .precision import ComputeMode
+from .precision import ComputeMode, QParams
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from .graph import FusedGroup, GraphProgram
@@ -43,16 +43,23 @@ class LayerPlan:
     #: the default profile's.  The conv wrapper's envelope guard reads it, so
     #: the dispatch-time fallback agrees with plan-time rule 1.
     vmem_budget: Optional[int] = None
+    #: Calibrated activation quantization of an IMPRECISE_INT8 layer (the
+    #: synthesizer attaches it); with it the layer runs the int8 kernels.
+    #: Part of ``cache_key``: a quantized program never aliases its float
+    #: counterpart, nor one calibrated to other scales.
+    qparams: Optional[QParams] = None
 
     def with_mode(self, mode: ComputeMode) -> "LayerPlan":
         return replace(self, mode=mode)
 
     @property
-    def cache_key(self) -> Tuple[str, str, str, int, int]:
+    def cache_key(self) -> Tuple[str, str, str, int, int, Optional[tuple]]:
         """What dispatch depends on (``reason`` is documentation)."""
         vb = self.vmem_budget if self.vmem_budget is not None \
             else DEFAULT_PROFILE.vmem_budget
-        return (self.impl, self.parallelism.value, self.mode.value, self.u, vb)
+        qp = self.qparams.key if self.qparams is not None else None
+        return (self.impl, self.parallelism.value, self.mode.value, self.u,
+                vb, qp)
 
 
 DEFAULT_LAYER_PLAN = LayerPlan()
@@ -108,6 +115,17 @@ class ExecutionPlan:
                              origin=self.origin, profile=self.profile,
                              graph=graph)
 
+    def with_qparams(self, qparams: Mapping[str, Optional[QParams]]
+                     ) -> "ExecutionPlan":
+        """Overlay activation qparams (calibration's output) onto the named
+        layers; ``None`` clears."""
+        if not qparams:
+            return self
+        new = dict(self.layers)
+        for name, qp in qparams.items():
+            new[name] = replace(new.get(name, DEFAULT_LAYER_PLAN), qparams=qp)
+        return self._with_layers(new)
+
     def fingerprint(self) -> str:
         """Hash of what changes the program: network name, device identity,
         every layer's ``cache_key`` (sorted by name), the fusion digest."""
@@ -115,8 +133,8 @@ class ExecutionPlan:
         h.update(self.net_name.encode())
         h.update(f"@{self.profile.identity()}".encode())
         for name in sorted(self.layers):
-            impl, par, mode, u, vb = self.layers[name].cache_key
-            h.update(f"|{name}={impl},{par},{mode},{u},vb{vb}".encode())
+            impl, par, mode, u, vb, qp = self.layers[name].cache_key
+            h.update(f"|{name}={impl},{par},{mode},{u},vb{vb},qp{qp}".encode())
         if self.graph is not None:
             h.update(f"!fusion={self.graph.fusion_digest()}".encode())
         return h.hexdigest()[:16]
@@ -205,8 +223,7 @@ class ValidationRecord:
 @dataclass
 class SynthesisReport:
     """Audit trail of the fixed-point loop and the final validation gate
-    (the fields of ``repro.core.plan.SynthesisReport`` without int8
-    activation scales)."""
+    (the fields of ``repro.core.plan.SynthesisReport``)."""
     iterations: List[IterationRecord] = field(default_factory=list)
     converged: bool = False
     tie_broken: bool = False
@@ -216,6 +233,9 @@ class SynthesisReport:
     fallbacks: List[str] = field(default_factory=list)
     validated: bool = False
     gate_skipped_reason: Optional[str] = None
+    #: Calibrated activation scales of the layers the shipped program runs
+    #: on the int8 datapath (empty when none does).
+    act_scales: Dict[str, float] = field(default_factory=dict)
 
     @property
     def final_validation(self) -> Optional[ValidationRecord]:
@@ -242,4 +262,9 @@ class SynthesisReport:
                              f"{'ok' if v.passed else 'over budget'}")
             for fb in self.fallbacks:
                 lines.append(f"  fallback: {fb}")
+        if self.act_scales:
+            lines.append(f"int8 calibration : {len(self.act_scales)} "
+                         "layer(s), per-tensor activation scales "
+                         + ", ".join(f"{n}={s:.3g}"
+                                     for n, s in sorted(self.act_scales.items())))
         return "\n".join(lines)

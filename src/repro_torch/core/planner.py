@@ -8,9 +8,12 @@ The counterpart of ``repro.core.planner``:
                        ``kernels/conv_mapmajor/ops.py::fits_vmem``, the one
                        the conv wrapper enforces, and it counts exactly the
                        bytes the CUDA kernel requests (an 8x8 output tile's
-                       input patch with its halo plus one weight slice).  The
-                       TPU's whole-plane formula would refuse AlexNet's conv2
-                       at Hopper's 227 KB and keep the kernel off the path.
+                       input patch with its halo plus one weight slice);
+                       under IMPRECISE_INT8, the int8 kernel's request with
+                       1-byte operands.  The TPU's whole-plane formula (2-byte
+                       operands under IMPRECISE_INT8 too) would refuse
+                       AlexNet's conv2 at Hopper's 227 KB and keep the kernel
+                       off the path.
   Rule 2 (group u)     The full lane width when the layer can fill it, else
                        the smallest power of two covering its channels.
   Rule 3 (roofline)    Compute-bound, wide convs and large matmuls go to the

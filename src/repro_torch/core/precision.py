@@ -5,11 +5,13 @@ The counterpart of ``repro.core.precision``.  Modes, fastest last:
   PRECISE         f32 storage and math, full f32 (no TF32 anywhere).
   RELAXED         bf16 operands, f32 accumulation, bf16 outputs.
   IMPRECISE       bf16 operands, a bf16 accumulator, bf16 outputs.
-  IMPRECISE_INT8  kept as a name so plans and the mode order match the JAX
-                  package; every entry point that would compute in it
-                  raises :class:`NotImplementedError` (the int8 datapath is
-                  ROADMAP queue 2, items 2 and 4).  It is never silently
-                  dequantized.
+  IMPRECISE_INT8  int8 per-output-channel weights (:class:`QuantizedTensor`)
+                  and static per-tensor activation scales (:class:`QParams`,
+                  calibrated by the synthesizer).  With qparams on the
+                  layer's plan the map-major kernels run int8 x int8 -> int32
+                  with a dequant(+bias+ReLU) flush; everywhere else the
+                  weights dequantize to bf16 and the layer computes exactly
+                  as RELAXED does (bf16 operands, f32 accumulation, bf16 out).
 
 PyTorch runs f32 convolutions in TF32 on the card by default
 (``torch.backends.cudnn.allow_tf32``).  :func:`full_f32` turns TF32 off for
@@ -20,13 +22,10 @@ from __future__ import annotations
 
 import contextlib
 import enum
-from typing import Iterator
+from dataclasses import dataclass
+from typing import Iterator, Union
 
 import torch
-
-INT8_NOT_PORTED = ("IMPRECISE_INT8 is not ported yet: the int8 datapath "
-                   "(ROADMAP.md queue 2, items 2 and 4, with calibration) is "
-                   "the next slice of the port")
 
 
 class ComputeMode(enum.Enum):
@@ -48,28 +47,25 @@ class ComputeMode(enum.Enum):
         return torch.float32 if self is ComputeMode.PRECISE else torch.bfloat16
 
     @property
+    def quantizes_weights(self) -> bool:
+        return self is ComputeMode.IMPRECISE_INT8
+
+    @property
     def speed_rank(self) -> int:
         return {ComputeMode.IMPRECISE_INT8: 0, ComputeMode.IMPRECISE: 1,
                 ComputeMode.RELAXED: 2, ComputeMode.PRECISE: 3}[self]
 
     @property
     def kernel_code(self) -> int:
-        """The ``mode`` argument of the CUDA kernels' C interface."""
-        require_float(self)
+        """The ``mode`` argument of the float kernels' C interface.
+        IMPRECISE_INT8 outside the int8 kernels is RELAXED's arithmetic."""
         return {ComputeMode.PRECISE: 0, ComputeMode.RELAXED: 1,
-                ComputeMode.IMPRECISE: 2}[self]
+                ComputeMode.IMPRECISE: 2, ComputeMode.IMPRECISE_INT8: 1}[self]
 
 
 #: Modes the selector tries, fastest first.  INT8 is opt-in (allow_int8).
 MODES_FASTEST_FIRST = (ComputeMode.IMPRECISE_INT8, ComputeMode.IMPRECISE,
                        ComputeMode.RELAXED, ComputeMode.PRECISE)
-
-
-def require_float(mode: ComputeMode) -> ComputeMode:
-    """Raise for IMPRECISE_INT8, which this slice does not compute."""
-    if mode is ComputeMode.IMPRECISE_INT8:
-        raise NotImplementedError(INT8_NOT_PORTED)
-    return mode
 
 
 @contextlib.contextmanager
@@ -86,32 +82,161 @@ def full_f32() -> Iterator[None]:
         torch.backends.cudnn.allow_tf32 = cudnn_flag
 
 
+@dataclass(frozen=True)
+class QuantizedTensor:
+    """Per-output-channel symmetric int8 quantization of a weight tensor:
+    ``q`` int8 of the weight's shape, ``scale`` f32 broadcastable against it
+    (size 1 on every axis but the channel axis)."""
+    q: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.q.shape
+
+    @property
+    def ndim(self) -> int:
+        return self.q.ndim
+
+    @property
+    def device(self) -> torch.device:
+        return self.q.device
+
+    def to(self, device: "str | torch.device") -> "QuantizedTensor":
+        return QuantizedTensor(q=self.q.to(device), scale=self.scale.to(device))
+
+    def dequantize(self, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        return (self.q.float() * self.scale).to(dtype)
+
+    def reshape(self, *shape) -> torch.Tensor:
+        """A reshape breaks the per-channel alignment, so it dequantizes."""
+        return self.dequantize().reshape(*shape)
+
+    def astype(self, dtype: torch.dtype) -> torch.Tensor:
+        return self.dequantize(dtype)
+
+
+Weight = Union[torch.Tensor, QuantizedTensor]
+
+
+def f32_scalar(value, device: torch.device) -> torch.Tensor:
+    """A scale as a 0-dim f32 tensor on ``device``.  Quantizers divide by
+    it, as the JAX package divides by its traced f32 scalar: on the card a
+    Python number or CPU scalar as divisor is turned into a multiply by its
+    reciprocal, which can round the other way.  A number is filled in on
+    the device (no host copy, which would synchronize the stream)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=torch.float32)
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def quantize_int8(w: torch.Tensor, *, channel_axis: int = 0) -> QuantizedTensor:
+    """amax per channel; scale = amax / 127 where amax > 0, else 1;
+    q = clip(round(w / scale), -127, 127) with round half to even."""
+    wf = w.float()
+    reduce_axes = tuple(a for a in range(w.ndim) if a != channel_axis)
+    amax = wf.abs().amax(dim=reduce_axes, keepdim=True)
+    scale = torch.where(amax > 0, amax / f32_scalar(127.0, amax.device),
+                        torch.ones_like(amax))
+    q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    return QuantizedTensor(q=q, scale=scale)
+
+
+def weight_channel_axis(kind: str) -> int:
+    """The output-channel axis of a layer kind's weight: OIHW conv -> 0,
+    dense (K, N) -> 1.  Per-channel scales live there, so the int8 flush can
+    fold them in after the int32 sum."""
+    return 1 if kind == "dense" else 0
+
+
+@dataclass(frozen=True)
+class QParams:
+    """Static per-tensor symmetric int8 activation quantization, calibrated
+    by the synthesizer and carried on the layer's plan (and so in its
+    ``cache_key`` and fingerprint)."""
+    act_scale: float
+    zero_point: int = 0
+
+    def __post_init__(self):
+        if not self.act_scale > 0:
+            raise ValueError(f"act_scale must be > 0, got {self.act_scale}")
+        if self.zero_point != 0:
+            raise ValueError("only symmetric quantization (zero_point=0) "
+                             "is implemented")
+
+    @property
+    def key(self) -> tuple:
+        return (float(self.act_scale), int(self.zero_point))
+
+
+def quantize_act_int8(x: torch.Tensor, act_scale) -> torch.Tensor:
+    """Activations -> int8 at a static per-tensor scale (f32 division)."""
+    q = torch.round(x.float() / f32_scalar(act_scale, x.device))
+    return torch.clamp(q, -127, 127).to(torch.int8)
+
+
+def fake_quantize_act(x: torch.Tensor, act_scale) -> torch.Tensor:
+    """The quantize-dequantize round trip in f32: what the library fallback
+    feeds an int8 layer, so it rounds activations as the kernel path does."""
+    s = f32_scalar(act_scale, x.device)
+    return torch.clamp(torch.round(x.float() / s), -127, 127) * s
+
+
+def calibrate_act_scale(x: torch.Tensor) -> QParams:
+    """Per-tensor symmetric scale from an activation sample: amax / 127."""
+    amax = float(x.float().abs().max())
+    return QParams(act_scale=amax / 127.0 if amax > 0 else 1.0)
+
+
+def int8_flush(acc: torch.Tensor, s: torch.Tensor,
+               b: "torch.Tensor | None", apply_relu: bool,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """The int8 kernels' flush on an int32 accumulator: ``float(acc) * s``,
+    then ``+ b``, each rounded once in f32, then ReLU and the cast (the TPU
+    kernels' order)."""
+    v = acc.float() * s
+    if b is not None:
+        v = v + b
+    if apply_relu:
+        v = torch.relu(v)
+    return v.to(out_dtype)
+
+
 def prepare_operand(x: torch.Tensor, mode: ComputeMode) -> torch.Tensor:
     """Cast an activation or weight operand for the mode."""
-    return x.to(require_float(mode).operand_dtype)
+    return x.to(mode.operand_dtype)
 
 
-def prepare_weight(w: torch.Tensor, mode: ComputeMode) -> torch.Tensor:
-    """Synthesis-time weight preparation (Stage B): cast to the operand type
-    (the int8 slice adds per-channel quantization here)."""
+def prepare_weight(w: Weight, mode: ComputeMode, *,
+                   channel_axis: int = 0) -> Weight:
+    """Synthesis-time weight preparation (Stage B): quantize per output
+    channel under IMPRECISE_INT8 (a weight that is already quantized stays
+    as it is), else cast to the operand type."""
+    if mode.quantizes_weights:
+        if isinstance(w, QuantizedTensor):
+            return w
+        return quantize_int8(w, channel_axis=channel_axis)
+    return resolve_weight(w, mode)
+
+
+def resolve_weight(w: Weight, mode: ComputeMode) -> torch.Tensor:
+    """A prepared weight as a math operand of the mode (dequantized when it
+    is a :class:`QuantizedTensor`)."""
+    if isinstance(w, QuantizedTensor):
+        return w.dequantize(mode.operand_dtype)
     return prepare_operand(w, mode)
 
 
-def resolve_weight(w: torch.Tensor, mode: ComputeMode) -> torch.Tensor:
-    """A prepared weight as a math operand of the mode."""
-    return prepare_operand(w, mode)
-
-
-def mode_dot(a: torch.Tensor, b: torch.Tensor, mode: ComputeMode) -> torch.Tensor:
+def mode_dot(a: torch.Tensor, b: Weight, mode: ComputeMode) -> torch.Tensor:
     """``a @ b`` under a compute mode; returns ``mode.out_dtype``.
 
-    PRECISE is an f32 product with TF32 off.  RELAXED and IMPRECISE multiply
-    bf16 operands with f32 accumulation inside the library call and round
-    the result to bf16 (the JAX package's CPU and TPU paths do the same for
-    a bf16-preferred product).
+    PRECISE is an f32 product with TF32 off.  The other modes multiply bf16
+    operands with f32 accumulation inside the library call and round the
+    result to bf16 (the JAX package's CPU and TPU paths do the same for a
+    bf16-preferred product).
     """
     a = prepare_operand(a, mode)
-    b = prepare_operand(b, mode)
+    b = resolve_weight(b, mode)
     with full_f32():
         out = torch.matmul(a, b)
     return out.to(mode.out_dtype)

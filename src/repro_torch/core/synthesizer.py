@@ -13,9 +13,14 @@ program runs on) and, optionally, a validation set (images, labels).
      warm-up (which builds and loads the kernels) and counts it in
      ``stage_d_compiles``.  CUDA graph capture is later work.
 
+When IMPRECISE_INT8 can ship (``allow_int8=True``, ``forced_mode``, or a
+supplied plan that has it) and a validation set gives calibration images,
+the static per-tensor activation scales are calibrated once, up front, and
+attached to exactly the IMPRECISE_INT8 layers after every re-plan; without
+images those layers keep the dequant path.
+
 Not ported yet (ROADMAP.md queue 1): ``tracer=``, ``registry=``,
-``artifact_store=``, ``autotune=`` and the int8 calibration behind
-``allow_int8=True``, which raises.
+``artifact_store=``, ``autotune=`` and ``autotune_input=``.
 """
 from __future__ import annotations
 
@@ -31,13 +36,14 @@ from ..device.profile import DeviceProfile, resolve_profile
 from .graph import lower_network
 from .layout import LANES
 from .mode_selector import ModeSelectionReport, refine_plan
-from .network import NetworkDescription, run_network
+from .network import NetworkDescription, collect_activations, run_network
 from .parallelism import Parallelism
 from .plan import (ExecutionPlan, IterationRecord, SynthesisReport,
                    ValidationRecord, enforce_precise_xla)
 from .planner import PlannerConfig, plan_network
-from .precision import (INT8_NOT_PORTED, MODES_FASTEST_FIRST, ComputeMode,
-                        prepare_weight)
+from .precision import (MODES_FASTEST_FIRST, ComputeMode, QParams,
+                        QuantizedTensor, calibrate_act_scale, prepare_weight,
+                        weight_channel_axis)
 
 MAX_SYNTHESIS_ITERATIONS = 4
 
@@ -73,8 +79,10 @@ class SynthesizedProgram:
     mode_report: Optional[ModeSelectionReport]
     synthesis_seconds: float
     synthesis_report: Optional[SynthesisReport] = None
-    prepared: Dict[str, Dict[str, torch.Tensor]] = field(repr=False,
-                                                         default_factory=dict)
+    #: Stage B's weights: tensors, or :class:`QuantizedTensor` for
+    #: IMPRECISE_INT8 layers.
+    prepared: Dict[str, Dict[str, object]] = field(repr=False,
+                                                   default_factory=dict)
     vector_width: int = LANES
     input_dtype: torch.dtype = torch.float32
     stage_d_compiles: int = 0
@@ -92,15 +100,20 @@ class SynthesizedProgram:
         return run_network(self.net, self.prepared, x, plan=self.plan)
 
     def params_digest(self) -> str:
-        """Content hash of the prepared weights (Stage B's output)."""
+        """Content hash of the prepared weights (Stage B's output); a
+        quantized weight hashes its payload and its scales."""
         if self._params_digest is None:
             h = hashlib.sha256()
             for name in sorted(self.prepared):
                 h.update(name.encode())
                 for key in sorted(self.prepared[name]):
-                    t = self.prepared[name][key].detach().contiguous().cpu()
-                    h.update(f"{key}:{t.dtype}:{tuple(t.shape)}".encode())
-                    h.update(t.view(torch.uint8).numpy().tobytes())
+                    v = self.prepared[name][key]
+                    parts = ([(f"{key}.q", v.q), (f"{key}.scale", v.scale)]
+                             if isinstance(v, QuantizedTensor) else [(key, v)])
+                    for label, t in parts:
+                        t = t.detach().contiguous().cpu()
+                        h.update(f"{label}:{t.dtype}:{tuple(t.shape)}".encode())
+                        h.update(t.view(torch.uint8).numpy().tobytes())
             self._params_digest = h.hexdigest()[:16]
         return self._params_digest
 
@@ -165,11 +178,48 @@ def _top1(logits: torch.Tensor, labels: torch.Tensor) -> float:
     return float((pred == labels.to(pred.device)).float().mean())
 
 
-def _accuracy_eval(net, params, images, labels):
+def calibrate_activation_qparams(net: NetworkDescription, params,
+                                 images: torch.Tensor) -> Dict[str, QParams]:
+    """Static per-tensor activation scales: the float network (all PRECISE,
+    library path) runs once over the calibration images, and every
+    parametric layer gets ``amax(|its input|) / 127``."""
+    acts = collect_activations(net, params, images)
+    return {l.name: calibrate_act_scale(acts[l.inputs[0]])
+            for l in net.param_layers}
+
+
+def _attach_qparams(plan: ExecutionPlan,
+                    act_qparams: Optional[Dict[str, QParams]]) -> ExecutionPlan:
+    """Calibrated qparams on exactly the IMPRECISE_INT8 layers; every other
+    calibrated layer gets None, so a demoted layer also loses its
+    quantization identity.  Re-planning rebuilds the layer plans, so this
+    runs after every re-plan."""
+    if not act_qparams:
+        return plan
+    return plan.with_qparams({
+        name: (qp if plan.for_layer(name).mode is ComputeMode.IMPRECISE_INT8
+               else None)
+        for name, qp in act_qparams.items()})
+
+
+def _accuracy_eval(net, params, images, labels, act_qparams=None):
     """Top-1 accuracy under a candidate plan (modes overlaid per probe).
-    Casting-only modes need no weight preparation: the ops cast operands."""
+    IMPRECISE_INT8 layers get quantized weights and, with calibration, their
+    qparams, so the probe measures the program Stage B would emit; casting
+    modes need no preparation: the ops cast operands."""
     def evaluate_plan(p: ExecutionPlan) -> float:
-        return _top1(run_network(net, params, images, plan=p), labels)
+        p = _attach_qparams(p, act_qparams)
+        probed = {}
+        for l in net.param_layers:
+            mode = p.for_layer(l.name).mode
+            if mode.quantizes_weights:
+                lp = dict(params[l.name])
+                lp["w"] = prepare_weight(lp["w"], mode,
+                                         channel_axis=weight_channel_axis(l.kind))
+                probed[l.name] = lp
+            else:
+                probed[l.name] = params[l.name]
+        return _top1(run_network(net, probed, images, plan=p), labels)
     return evaluate_plan
 
 
@@ -192,12 +242,14 @@ def _replan(net: NetworkDescription, base: ExecutionPlan,
 
 def _prepare_params(net: NetworkDescription, params,
                     modes: Dict[str, ComputeMode]):
-    """Stage B: weights cast to each layer's operand type, biases to f32.
-    The map-major reorder happens in the kernel wrappers."""
+    """Stage B: weights cast to each layer's operand type (quantized per
+    output channel under IMPRECISE_INT8), biases to f32.  The map-major
+    reorder happens in the kernel wrappers."""
     prepared = {}
     for l in net.param_layers:
         p = dict(params[l.name])
-        p["w"] = prepare_weight(p["w"], modes[l.name])
+        p["w"] = prepare_weight(p["w"], modes[l.name],
+                                channel_axis=weight_channel_axis(l.kind))
         if "b" in p:
             p["b"] = p["b"].float()
         prepared[l.name] = p
@@ -213,6 +265,13 @@ def _demote_modes(modes: Dict[str, ComputeMode]) -> Dict[str, ComputeMode]:
     order = list(MODES_FASTEST_FIRST)
     return {n: order[min(order.index(m) + 1, len(order) - 1)]
             for n, m in modes.items()}
+
+
+def _shipped_scales(plan: ExecutionPlan,
+                    act_qparams: Optional[Dict[str, QParams]]) -> Dict[str, float]:
+    """The activation scales of the layers that carry qparams in ``plan``."""
+    return {n: float(qp.act_scale) for n, qp in (act_qparams or {}).items()
+            if plan.for_layer(n).qparams is not None}
 
 
 def _dominant_policy(net: NetworkDescription, plan: ExecutionPlan) -> Parallelism:
@@ -240,14 +299,14 @@ def synthesize(net: NetworkDescription,
     pins every conv and dense layer and skips Stage C and the gate; without
     a validation set every such layer is RELAXED.  With one, Stages A and C
     run as the fixed-point loop and the final gate measures the emitted
-    program against ``max_degradation``.  ``fuse`` lowers through the graph
-    passes first (one dispatch per fused group).
+    program against ``max_degradation``; ``allow_int8`` lets Stage C try
+    IMPRECISE_INT8.  The validation images also calibrate the int8
+    activation scales.  ``fuse`` lowers through the graph passes first (one
+    dispatch per fused group).
     """
     t0 = time.perf_counter()
     if max_iterations < 1:
         raise ValueError(f"max_iterations must be >= 1, got {max_iterations}")
-    if allow_int8 or forced_mode is ComputeMode.IMPRECISE_INT8:
-        raise NotImplementedError(INT8_NOT_PORTED)
 
     if device is not None:
         profile = resolve_profile(device)
@@ -272,15 +331,26 @@ def synthesize(net: NetworkDescription,
         graph = lower_network(net) if fuse else None
         plan = plan_network(net, config=planner_config, graph=graph)
 
+    # Int8 calibration, once, up front, when IMPRECISE_INT8 can ship.
+    wants_int8 = (allow_int8 or forced_mode is ComputeMode.IMPRECISE_INT8
+                  or any(lp.mode is ComputeMode.IMPRECISE_INT8
+                         for lp in plan.layers.values()))
+    calib_x = validation[0] if validation is not None else None
+    act_qparams: Optional[Dict[str, QParams]] = None
+    if wants_int8 and calib_x is not None:
+        act_qparams = calibrate_activation_qparams(net, params, calib_x)
+
     if forced_mode is not None or validation is None:
         modes = {n: forced_mode or ComputeMode.RELAXED
                  for n in net.inexactable_layers}
-        plan = _replan(net, plan, modes, planner_config)
+        plan = _attach_qparams(_replan(net, plan, modes, planner_config),
+                               act_qparams)
         synthesis_report = SynthesisReport(
             converged=True, max_iterations=max_iterations,
             gate_skipped_reason=("forced_mode pins Stage C"
                                  if forced_mode is not None
-                                 else "no validation set"))
+                                 else "no validation set"),
+            act_scales=_shipped_scales(plan, act_qparams))
         return SynthesizedProgram(
             net=net, plan=plan, modes=modes,
             parallelism=_dominant_policy(net, plan), mode_report=None,
@@ -290,7 +360,7 @@ def synthesize(net: NetworkDescription,
 
     # ---- Fixed-point loop: plan -> mode probe -> re-plan -> re-probe ------
     images, labels = validation
-    evaluate_plan = _accuracy_eval(net, params, images, labels)
+    evaluate_plan = _accuracy_eval(net, params, images, labels, act_qparams)
     layer_names = net.inexactable_layers
     synthesis_report = SynthesisReport(max_iterations=max_iterations)
     seen: Dict[tuple, int] = {}
@@ -299,7 +369,7 @@ def synthesize(net: NetworkDescription,
     precise_modes = {n: ComputeMode.PRECISE for n in layer_names}
     probe_reference: Optional[float] = None
     probe_reference_fp: Optional[str] = None
-    current = plan
+    current = _attach_qparams(plan, act_qparams)
 
     for i in range(1, max_iterations + 1):
         # The all-PRECISE reference holds while the plan it would run under
@@ -309,10 +379,13 @@ def synthesize(net: NetworkDescription,
             probe_reference, probe_reference_fp = None, ref_fp
         report, probed = refine_plan(current, layer_names, evaluate_plan,
                                      max_degradation=max_degradation,
+                                     allow_int8=allow_int8,
                                      reference=probe_reference)
         probe_reference = report.reference_metric
         modes = report.modes
-        next_plan = _replan(net, probed, modes, planner_config)
+        probed = _attach_qparams(probed, act_qparams)
+        next_plan = _attach_qparams(
+            _replan(net, probed, modes, planner_config), act_qparams)
         key = (next_plan.fingerprint(), _modes_key(modes))
         synthesis_report.iterations.append(IterationRecord(
             index=i, plan_fingerprint=next_plan.fingerprint(),
@@ -345,7 +418,8 @@ def synthesize(net: NetworkDescription,
         current, modes, mode_report = chosen
 
     # ---- Final validation gate on the emitted dispatch path ---------------
-    ref_plan = _replan(net, current, precise_modes, planner_config)
+    ref_plan = _attach_qparams(
+        _replan(net, current, precise_modes, planner_config), act_qparams)
     ref_program = SynthesizedProgram(
         net=net, plan=ref_plan, modes=precise_modes,
         parallelism=_dominant_policy(net, ref_plan), mode_report=None,
@@ -383,9 +457,11 @@ def synthesize(net: NetworkDescription,
             f"measured degradation {degradation:.4f} > budget "
             f"{max_degradation:.4f}: demoted {', '.join(changed)}")
         cand_modes = demoted
-        cand_plan = _replan(net, cand_plan, cand_modes, planner_config)
+        cand_plan = _attach_qparams(
+            _replan(net, cand_plan, cand_modes, planner_config), act_qparams)
 
     synthesis_report.validated = passed
+    synthesis_report.act_scales = _shipped_scales(program.plan, act_qparams)
     if synthesis_report.fallbacks and mode_report is not None:
         program.mode_report = dataclasses.replace(
             mode_report, modes=dict(cand_modes), final_metric=acc,

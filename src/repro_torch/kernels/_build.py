@@ -42,6 +42,15 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "matmul_mapmajor_launch": (_I, [_P, _P, _P, _P] + [_I] * 6 + [_P]),
         "matmul_mapmajor_block_k": (_I, []),
     },
+    "conv_mapmajor_int8": {
+        "conv_mapmajor_int8_launch": (_I, [_P] * 5 + [_I] * 14 + [_P]),
+        "conv_mapmajor_int8_smem_bytes": (ctypes.c_longlong, [_I] * 5),
+        "conv_mapmajor_int8_max_u": (_I, []),
+    },
+    "matmul_mapmajor_int8": {
+        "matmul_mapmajor_int8_launch": (_I, [_P] * 5 + [_I] * 5 + [_P]),
+        "matmul_mapmajor_int8_block_k": (_I, []),
+    },
 }
 
 _lock = threading.Lock()

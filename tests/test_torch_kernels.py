@@ -5,8 +5,10 @@ held against the JAX package's Pallas kernels run with ``interpret=True``,
 on the geometries of tests/test_kernels.py, in every float mode, with the
 fused bias+ReLU flush on and off and a nonzero bias.  Tolerance: the JAX
 package's rule (rtol = mode_tolerance, atol = rtol * max|ref|).  The cases
-marked ``gpu`` hold each CUDA kernel against its plain version on the card;
-they import no JAX, so they run where the port runs:
+marked ``gpu`` hold each CUDA kernel against its plain version on the card
+(the int8 kernels bit for bit, their int32 sums being exact and their flush
+rounding as the plain version's does); they import no JAX, so they run
+where the port runs:
 ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_kernels.py``.
 """
 import numpy as np
@@ -16,12 +18,16 @@ import torch
 from repro_torch.core.layout import to_map_major
 from repro_torch.core.parallelism import conv_olp
 from repro_torch.core.precision import ComputeMode, mode_tolerance
+from repro_torch.kernels import _build
 from repro_torch.kernels.conv_mapmajor.conv_mapmajor import (
-    conv_mapmajor, conv_mapmajor_plain, kernel_smem_bytes)
+    MAX_U, conv_mapmajor, conv_mapmajor_int8, conv_mapmajor_int8_plain,
+    conv_mapmajor_plain, cuda_smem_bytes_int8, kernel_smem_bytes,
+    kernel_smem_bytes_int8)
 from repro_torch.kernels.conv_mapmajor.ops import conv2d_mapmajor, fits_vmem
 from repro_torch.kernels.conv_mapmajor.ref import conv_mapmajor_ref, pack_weights
 from repro_torch.kernels.matmul_mapmajor.matmul_mapmajor import (
-    matmul_mapmajor, matmul_mapmajor_plain)
+    BLOCK_K, matmul_mapmajor, matmul_mapmajor_int8, matmul_mapmajor_int8_plain,
+    matmul_mapmajor_plain)
 from repro_torch.kernels.matmul_mapmajor.ops import block_k, matmul
 from repro_torch.kernels.matmul_mapmajor.ref import matmul_ref
 
@@ -136,9 +142,11 @@ def test_wrappers_refuse_other_devices_and_bad_blocking():
         matmul_mapmajor(meta, torch.empty((64, 3), device="meta"), bk=64)
     with pytest.raises(ValueError, match="multiple"):
         matmul_mapmajor(torch.ones(2, 64), torch.ones(64, 3), bk=96)
-    with pytest.raises(NotImplementedError):
-        matmul_mapmajor(torch.ones(2, 64), torch.ones(64, 3), bk=64,
-                        mode=ComputeMode.IMPRECISE_INT8)
+    # Outside the int8 kernel IMPRECISE_INT8 (dequantized weights) computes
+    # exactly as RELAXED, as in the JAX package.
+    a, w = torch.randn(2, 64), torch.randn(64, 3)
+    assert torch.equal(matmul_mapmajor(a, w, bk=64, mode=ComputeMode.IMPRECISE_INT8),
+                       matmul_mapmajor(a, w, bk=64, mode=ComputeMode.RELAXED))
 
 
 # ------------------------------------------------------------ on the card --
@@ -198,3 +206,85 @@ def test_conv_kernel_counts_its_launches(cuda):
     want = conv_mapmajor_plain(x_mm.cpu(), w_mm.cpu(), out_hw=(8, 8),
                                mode=ComputeMode.RELAXED)
     assert torch.equal(out.cpu(), want)
+
+
+INT8_CONV_CASES = [  # n, gi, go, u, u_out, ho, k, stride
+    (2, 1, 1, 8, 8, 6, 3, 1), (1, 2, 2, 16, 16, 5, 3, 1),
+    (2, 1, 1, 8, 8, 4, 5, 4), (1, 3, 1, 32, 20, 9, 1, 1),
+    (1, 1, 1, 4, 4, 7, 11, 4), (2, 2, 2, 128, 128, 13, 3, 1)]
+
+
+def _int8_conv_operands(n, gi, go, u, u_out, ho, k, stride, seed=0):
+    rng = np.random.default_rng(seed)
+    hp = (ho - 1) * stride + k
+    x = rng.integers(-127, 128, (n, gi, hp, hp, u), dtype=np.int8)
+    w = rng.integers(-127, 128, (go, u_out, gi, k, k, u), dtype=np.int8)
+    s = (rng.random((go, u_out)) * 1e-3).astype(np.float32)
+    b = rng.standard_normal((go, u_out)).astype(np.float32)
+    return to_torch(x), to_torch(w), to_torch(s), to_torch(b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "linear"])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("n,gi,go,u,u_out,ho,k,stride", INT8_CONV_CASES)
+def test_conv_int8_kernel_equals_plain_on_card(cuda, n, gi, go, u, u_out, ho,
+                                               k, stride, bias, relu):
+    x, w, s, b = _int8_conv_operands(n, gi, go, u, u_out, ho, k, stride)
+    b = b if bias else None
+    got = conv_mapmajor_int8(x.to(cuda), w.to(cuda), s.to(cuda),
+                             b.to(cuda) if bias else None, stride=stride,
+                             out_hw=(ho, ho), apply_relu=relu)
+    torch.cuda.synchronize()
+    want = conv_mapmajor_int8_plain(x, w, s, b, stride=stride, out_hw=(ho, ho),
+                                    apply_relu=relu)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_conv_int8_kernel_accumulates_exactly_and_counts_launches(cuda):
+    """Scale 1 and f32 out: the card's int32 sums equal the plain version's
+    (beyond f32's exact integers at these sizes), in one counted launch."""
+    x, w, _, _ = _int8_conv_operands(1, 3, 1, 128, 128, 5, 3, 1, seed=1)
+    s = torch.ones(1, 128)
+    before = conv_mapmajor_int8.launches
+    got = conv_mapmajor_int8(x.to(cuda), w.to(cuda), s.to(cuda), out_hw=(5, 5),
+                             out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert conv_mapmajor_int8.launches == before + 1
+    want = conv_mapmajor_int8_plain(x, w, s, out_hw=(5, 5),
+                                    out_dtype=torch.float32)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "linear"])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("m,k,n", [(7, 33, 5), (100, 300, 50), (1, 128, 1),
+                                   (8, 9216, 4096), (5, 64, 130)])
+def test_matmul_int8_kernel_equals_plain_on_card(cuda, m, k, n, bias, relu):
+    rng = np.random.default_rng(9)
+    a = to_torch(rng.integers(-127, 128, (m, k), dtype=np.int8))
+    w = to_torch(rng.integers(-127, 128, (k, n), dtype=np.int8))
+    s = to_torch((rng.random(n) * 1e-4).astype(np.float32))
+    b = to_torch(rng.standard_normal(n).astype(np.float32)) if bias else None
+    before = matmul_mapmajor_int8.launches
+    got = matmul_mapmajor_int8(a.to(cuda), w.to(cuda), s.to(cuda),
+                               b.to(cuda) if bias else None, apply_relu=relu)
+    torch.cuda.synchronize()
+    assert matmul_mapmajor_int8.launches == before + 1
+    want = matmul_mapmajor_int8_plain(a, w, s, b, apply_relu=relu)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_int8_sources_agree_with_python_constants(cuda):
+    """The smem count rule 1 reads under IMPRECISE_INT8, MAX_U and BLOCK_K
+    equal the CUDA sources' own."""
+    for k, stride in [(11, 4), (5, 1), (3, 1), (1, 1)]:
+        for u in (8, 64, 128):
+            assert kernel_smem_bytes_int8(k, k, stride, u, u) == \
+                cuda_smem_bytes_int8(k, k, stride, u, u)
+    assert _build.load("conv_mapmajor_int8").conv_mapmajor_int8_max_u() == MAX_U
+    assert _build.load("matmul_mapmajor_int8").matmul_mapmajor_int8_block_k() \
+        == BLOCK_K

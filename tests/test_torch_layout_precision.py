@@ -16,9 +16,7 @@ from repro.core import precision as jp
 from repro.kernels.conv_mapmajor.ops import _pack_bias as jax_pack_bias
 from repro.kernels.conv_mapmajor.ref import pack_weights as jax_pack_weights
 from repro_torch.core import layout as tl
-from repro_torch.core.precision import (INT8_NOT_PORTED, ComputeMode,
-                                        mode_dot, mode_tolerance,
-                                        prepare_weight)
+from repro_torch.core.precision import ComputeMode, mode_dot, mode_tolerance
 from repro_torch.device import (CPU, H100, DeviceProfile, ProfileSchemaError,
                                 resolve_profile, torch_device)
 from repro_torch.kernels.conv_mapmajor.ref import pack_bias, pack_weights
@@ -86,15 +84,6 @@ def test_mode_dtypes_and_tolerances_mirror_reference(mode):
     assert names[mode.operand_dtype] == np.dtype(ref.operand_dtype).name
     assert names[mode.accum_dtype] == np.dtype(ref.accum_dtype).name
     assert names[mode.out_dtype] == np.dtype(ref.out_dtype).name
-
-
-def test_int8_mode_raises_instead_of_dequantizing():
-    w = torch.ones(4, 4)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        prepare_weight(w, ComputeMode.IMPRECISE_INT8)
-    with pytest.raises(NotImplementedError):
-        mode_dot(w, w, ComputeMode.IMPRECISE_INT8)
-    assert "ROADMAP" in INT8_NOT_PORTED
 
 
 def test_precise_mode_dot_restores_tf32_flags():

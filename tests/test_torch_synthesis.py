@@ -191,10 +191,6 @@ def test_for_batch_counts_compiles_and_rejects_other_shapes():
 def test_unported_options_raise():
     net = alexnet(**KW)
     params = params_from_numpy(reference_params(jax_alexnet(**KW)), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        synthesize(net, params, allow_int8=True)
-    with pytest.raises(NotImplementedError):
-        synthesize(net, params, forced_mode=ComputeMode.IMPRECISE_INT8)
     with pytest.raises(TypeError):
         synthesize(net, params, autotune=True)
     with pytest.raises(NotImplementedError, match="sequential"):
