@@ -29,10 +29,14 @@ Phases; each raises on failure, so a failing phase never exits 0:
    prepared weights within mode_tolerance(IMPRECISE_INT8) of the row's
    largest |logit|; then one ``synthesize(..., allow_int8=True,
    max_degradation=0.05)`` through the loop and the gate;
-5. times with CUDA events (median): each kernel, its plain version, one
-   library call for the same function where PyTorch has one, and the bound
-   from its bytes and operations; end to end at batch 1 and 8 for the
-   RELAXED and the int8 program;
+5. times: each kernel and one library call for the same function where
+   PyTorch has one, as device time (calls captured in a CUDA graph, the
+   weights cycled through copies so they are cold in L2), with the
+   kernel's ratio to the library call; one kernel call between CUDA events,
+   host dispatch included; the plain version (CUDA events); the bound from
+   bytes and operations; the float kernels under RELAXED and IMPRECISE
+   (what Stage C ships) and their blocks per launch; end to end (CUDA
+   events) at batch 1 and 8 for the RELAXED and the int8 program;
 6. one ``torch.profiler`` window of three batch-8 requests per program:
    device time by kernel and the device's busy share of the host-clock time.
 
@@ -54,6 +58,7 @@ SEED = 0
 H100_BF16_FLOPS = 989e12      # dense tensor-core peak (data sheet, 700 W)
 H100_INT8_OPS = 1979e12       # dense int8 tensor-core peak (data sheet, 700 W)
 H100_BYTES_PER_S = 3.35e12    # HBM3
+L2_BYTES = 50 * 2 ** 20       # the H100's L2 cache
 #: Kernel vs plain on the card: rtol = mode_tolerance(mode) with
 #: atol = rtol * max|plain|, except PRECISE, where the kernel's sequential
 #: FMA chain and the plain version's library sums add 2304-term f32 sums
@@ -111,6 +116,42 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def cold_copies(t, footprint: int = 2 * L2_BYTES):
+    """``t`` and clones of it, together at least ``footprint`` bytes, so that
+    cycling through them finds each copy cold in the card's L2."""
+    n = max(1, -(-footprint // (t.numel() * t.element_size())))
+    return [t] + [t.clone() for _ in range(n - 1)]
+
+
+def graph_ms(calls, runs: int = 5) -> float:
+    """Device time of one call: ``max(20, 2 * len(calls))`` calls, cycling
+    through ``calls``, captured in one CUDA graph and replayed ``runs`` times
+    between CUDA events; the median per call.  Host dispatch is not in it;
+    the gaps between the graph's kernels are."""
+    import torch
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    reps = max(20, 2 * len(calls))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for r in range(reps):
+            calls[r % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del graph
+    return statistics.median(times)
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -156,12 +197,12 @@ def main(argv=None) -> int:
     from repro_torch.data import imagenet_like
     from repro_torch.kernels import _build
     from repro_torch.kernels.conv_mapmajor.conv_mapmajor import (
-        MAX_U, conv_mapmajor, conv_mapmajor_int8, conv_mapmajor_int8_plain,
-        conv_mapmajor_plain, cuda_smem_bytes, cuda_smem_bytes_int8, kernel_smem_bytes,
-        kernel_smem_bytes_int8)
+        INT8_MAX_U, MAX_U, conv_mapmajor, conv_mapmajor_int8, conv_mapmajor_int8_plain,
+        conv_mapmajor_plain, cuda_grid_blocks, cuda_smem_bytes, cuda_smem_bytes_int8,
+        kernel_smem_bytes, kernel_smem_bytes_int8)
     from repro_torch.kernels.matmul_mapmajor.matmul_mapmajor import (
-        BLOCK_K, matmul_mapmajor, matmul_mapmajor_int8, matmul_mapmajor_int8_plain,
-        matmul_mapmajor_plain)
+        BLOCK_K, cuda_grid_blocks as mm_grid_blocks, matmul_mapmajor,
+        matmul_mapmajor_int8, matmul_mapmajor_int8_plain, matmul_mapmajor_plain)
     from repro_torch.kernels.matmul_mapmajor.ops import block_k
 
     counted = {"conv_mapmajor": conv_mapmajor, "matmul_mapmajor": matmul_mapmajor,
@@ -208,14 +249,19 @@ def main(argv=None) -> int:
           "MAX_U disagrees with kMaxU in conv_mapmajor.cu")
     check(_build.load("matmul_mapmajor").matmul_mapmajor_block_k() == BLOCK_K,
           "BLOCK_K disagrees with BK in matmul_mapmajor.cu")
-    check(_build.load("conv_mapmajor_int8").conv_mapmajor_int8_max_u() == MAX_U,
-          "MAX_U disagrees with kMaxU in conv_mapmajor_int8.cu")
+    check(_build.load("conv_mapmajor_int8").conv_mapmajor_int8_max_u() == INT8_MAX_U,
+          "INT8_MAX_U disagrees with kMaxU in conv_mapmajor_int8.cu")
     check(_build.load("matmul_mapmajor_int8").matmul_mapmajor_int8_block_k() == BLOCK_K,
           "BLOCK_K disagrees with BK in matmul_mapmajor_int8.cu")
     for k, s in [(11, 4)] + [(k, 1) for _, _, _, k, _ in CONV_SHAPES]:
         for mode in modes:
             check(kernel_smem_bytes(k, k, s, 128, 128, mode)
                   == cuda_smem_bytes(k, k, s, 128, 128, mode),
+                  "rule-1 envelope disagrees with the kernel's smem request")
+        # the lean staging and the 32-lane weight slices
+        for u, u_out, s2 in [(128, 128, 2), (100, 7, 2), (4, 16, 1)]:
+            check(kernel_smem_bytes(k, k, s2, u, u_out, ComputeMode.PRECISE)
+                  == cuda_smem_bytes(k, k, s2, u, u_out, ComputeMode.PRECISE),
                   "rule-1 envelope disagrees with the kernel's smem request")
         check(kernel_smem_bytes_int8(k, k, s, 128, 128)
               == cuda_smem_bytes_int8(k, k, s, 128, 128),
@@ -541,18 +587,34 @@ def main(argv=None) -> int:
     phase_done("main_path_int8")
 
     # ---- 5. times -----------------------------------------------------------
-    relaxed = ComputeMode.RELAXED
+    # Kernel and library times are device times (graph_ms): each call cycles
+    # through copies of its weights so that they are cold in L2, as in the
+    # program, where the other layers' weights pass through L2 in between.
+    # call_ms is one call between CUDA events, host dispatch included.
+    relaxed, imprecise = ComputeMode.RELAXED, ComputeMode.IMPRECISE
     bf16 = torch.bfloat16
     rows = []
     shapes = {name: (cin, cout) for name, cin, _, _, cout in CONV_SHAPES}
     cudnn_ms = {}
+
+    def row(kern, name, batch, calls, plain, lib, flops, nbytes, peak,
+            imprecise_calls=None, blocks=None):
+        rows.append({"kernel": kern, "layer": name, "batch": batch,
+                     "ms": graph_ms(calls), "call_ms": cuda_ms(calls[0]),
+                     "imprecise_ms": graph_ms(imprecise_calls) if imprecise_calls else None,
+                     "plain_ms": plain, "library_ms": graph_ms(lib) if lib else None,
+                     "flops": flops, "bytes": nbytes, "peak": peak, "blocks": blocks})
+        return rows[-1]
+
     for (name, batch), (x, w, b, hw) in conv_inputs.items():
         xb, wb = x.to(bf16), w.to(bf16)
         gi, go = x.shape[1], w.shape[0]
         k = w.shape[3]
         cin, cout = shapes[name]
-        ms = cuda_ms(lambda: conv_mapmajor(xb, wb, b, out_hw=(hw, hw), mode=relaxed,
-                                           apply_relu=True))
+        copies = cold_copies(wb)
+        kernel_calls = {mode: [lambda wc=wc, mode=mode: conv_mapmajor(
+            xb, wc, b, out_hw=(hw, hw), mode=mode, apply_relu=True)
+            for wc in copies] for mode in (relaxed, imprecise)}
         plain = cuda_ms(lambda: conv_mapmajor_plain(xb, wb, b, out_hw=(hw, hw),
                                                     mode=relaxed, apply_relu=True), reps=5)
         # The layer's own NCHW operands: no SAME border, no zero lanes past
@@ -563,17 +625,20 @@ def main(argv=None) -> int:
         w_oihw = wb.permute(0, 1, 2, 5, 3, 4).reshape(go * 128, gi * 128, k, k)[
             :cout, :cin].contiguous()
         b_lib = b.reshape(-1)[:cout].to(bf16)
-        lib = cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=k // 2))
-        cudnn_ms[(name, batch)] = lib
+        lib_calls = [lambda wc=wc: F.conv2d(x_nchw, wc, b_lib, padding=k // 2)
+                     for wc in cold_copies(w_oihw)]
         flops = 2.0 * batch * hw * hw * cout * cin * k * k
         nbytes = 2 * (x_nchw.numel() + w_oihw.numel() + batch * cout * hw * hw) + 4 * cout
-        rows.append(("conv_mapmajor", name, batch, ms, plain, lib, flops, nbytes,
-                     H100_BF16_FLOPS))
+        r = row("conv_mapmajor", name, batch, kernel_calls[relaxed], plain, lib_calls,
+                flops, nbytes, H100_BF16_FLOPS, kernel_calls[imprecise],
+                cuda_grid_blocks(batch, go, w.shape[1], hw, hw, k, k, 1, 128, relaxed))
+        cudnn_ms[(name, batch)] = r["library_ms"]
     for (name, batch), (x8, w8, s8, b, hw) in conv8_inputs.items():
         k = w8.shape[3]
         cin, cout = shapes[name]
-        ms = cuda_ms(lambda: conv_mapmajor_int8(x8, w8, s8, b, out_hw=(hw, hw),
-                                                apply_relu=True))
+        calls = [lambda wc=wc: conv_mapmajor_int8(x8, wc, s8, b, out_hw=(hw, hw),
+                                                  apply_relu=True)
+                 for wc in cold_copies(w8)]
         plain = cuda_ms(lambda: conv_mapmajor_int8_plain(x8, w8, s8, b, out_hw=(hw, hw),
                                                          apply_relu=True), reps=3)
         # The layer's own work: 1-byte activations and weights, bf16 out, f32
@@ -581,24 +646,27 @@ def main(argv=None) -> int:
         flops = 2.0 * batch * hw * hw * cout * cin * k * k
         nbytes = batch * cin * hw * hw + cout * cin * k * k + 2 * batch * cout * hw * hw \
             + 8 * cout
-        rows.append(("conv_mapmajor_int8", name, batch, ms, plain, None, flops, nbytes,
-                     H100_INT8_OPS))
+        row("conv_mapmajor_int8", name, batch, calls, plain, None, flops, nbytes,
+            H100_INT8_OPS)
     for (name, batch), (a, wm, bias) in mm_inputs.items():
         ab, wb = a.to(bf16), wm.to(bf16)
-        ms = cuda_ms(lambda: matmul_mapmajor(ab, wb, bias, mode=relaxed,
-                                             bk=block_k(128), apply_relu=True))
+        kdim, ndim = wm.shape
+        copies = cold_copies(wb)
+        kernel_calls = {mode: [lambda wc=wc, mode=mode: matmul_mapmajor(
+            ab, wc, bias, mode=mode, bk=block_k(128), apply_relu=True)
+            for wc in copies] for mode in (relaxed, imprecise)}
         plain = cuda_ms(lambda: matmul_mapmajor_plain(ab, wb, bias, mode=relaxed,
                                                       bk=block_k(128), apply_relu=True),
                         reps=5)
         bias_lib = bias.to(bf16)
-        lib = cuda_ms(lambda: torch.addmm(bias_lib, ab, wb))
-        kdim, ndim = wm.shape
+        lib_calls = [lambda wc=wc: torch.addmm(bias_lib, ab, wc) for wc in copies]
         flops = 2.0 * batch * kdim * ndim
         nbytes = 2 * (a.numel() + wm.numel() + batch * ndim) + 4 * bias.numel()
-        rows.append(("matmul_mapmajor", name, batch, ms, plain, lib, flops, nbytes,
-                     H100_BF16_FLOPS))
+        row("matmul_mapmajor", name, batch, kernel_calls[relaxed], plain, lib_calls,
+            flops, nbytes, H100_BF16_FLOPS, kernel_calls[imprecise],
+            mm_grid_blocks(batch, ndim, kdim, block_k(128)))
+        del copies, kernel_calls, lib_calls
     for (name, batch), (a8, wm8, s8, bias) in mm8_inputs.items():
-        ms = cuda_ms(lambda: matmul_mapmajor_int8(a8, wm8, s8, bias, apply_relu=True))
         plain = cuda_ms(lambda: matmul_mapmajor_int8_plain(a8, wm8, s8, bias,
                                                            apply_relu=True), reps=5)
         # cuBLASLt's int8 product (int32 out, no flush) needs M > 16: A is
@@ -608,25 +676,35 @@ def main(argv=None) -> int:
         check(torch.equal(torch._int_mm(a32, wm8_cm)[:batch],
                           (a8.double() @ wm8.double()).to(torch.int32)),
               "torch._int_mm disagrees with the exact int32 product")
-        lib = cuda_ms(lambda: torch._int_mm(a32, wm8_cm))
+        calls = [lambda wc=wc: matmul_mapmajor_int8(a8, wc, s8, bias, apply_relu=True)
+                 for wc in cold_copies(wm8)]
+        lib_calls = [lambda wc=wc: torch._int_mm(a32, wc) for wc in cold_copies(wm8_cm)]
         kdim, ndim = wm8.shape
         flops = 2.0 * batch * kdim * ndim
         nbytes = batch * kdim + kdim * ndim + 2 * batch * ndim + 8 * ndim
-        rows.append(("matmul_mapmajor_int8", name, batch, ms, plain, lib, flops, nbytes,
-                     H100_INT8_OPS))
-    print("kernel times (ms): kernel | plain | library | bound (by); float kernels "
-          "RELAXED; int8 library: torch._int_mm at M=32, conv none (bf16 cuDNN beside)")
+        row("matmul_mapmajor_int8", name, batch, calls, plain, lib_calls, flops, nbytes,
+            H100_INT8_OPS)
+        del calls, lib_calls
+    print("kernel times (ms, device, weights cold in L2): kernel [IMPRECISE] | one call "
+          "with host dispatch | plain | library | bound (by) | kernel/library | blocks per "
+          "launch; float kernels RELAXED, IMPRECISE in brackets; int8 library: "
+          "torch._int_mm at M=32, conv none (bf16 cuDNN beside, and the ratio to it)")
     per_shape = []
-    for kern, name, batch, ms, plain, lib, flops, nbytes, peak in rows:
-        t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    for r in rows:
+        t_ops = r["flops"] / r.pop("peak") * 1e3
+        t_bytes = r["bytes"] / H100_BYTES_PER_S * 1e3
         bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-        lib_s = f"{lib:.4f}" if lib is not None else \
-            f"none (bf16 cuDNN {cudnn_ms[(name, batch)]:.4f})"
-        print(f"  {kern:20s} {name} B={batch}: {ms:.4f} | {plain:.4f} | {lib_s} | "
-              f"{bound:.5f} ({by})")
-        per_shape.append({"kernel": kern, "layer": name, "batch": batch, "ms": ms,
-                          "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
-                          "bound_by": by, "flops": flops, "bytes": nbytes})
+        key = (r["layer"], r["batch"])
+        lib = r["library_ms"]
+        lib_s = f"{lib:.4f}" if lib is not None else f"none (bf16 cuDNN {cudnn_ms[key]:.4f})"
+        r.update(bound_ms=bound, bound_by=by,
+                 ratio_to_library=r["ms"] / (lib if lib is not None else cudnn_ms[key]))
+        imp_s = f" [{r['imprecise_ms']:.4f}]" if r["imprecise_ms"] is not None else ""
+        blk_s = f" | {r['blocks']} blocks" if r["blocks"] is not None else ""
+        print(f"  {r['kernel']:20s} {r['layer']} B={r['batch']}: {r['ms']:.4f}{imp_s} | "
+              f"{r['call_ms']:.4f} | {r['plain_ms']:.4f} | {lib_s} | {bound:.5f} ({by}) | "
+              f"{r['ratio_to_library']:.2f}x{blk_s}")
+        per_shape.append(r)
     results["per_shape"] = per_shape
 
     e2e = {}

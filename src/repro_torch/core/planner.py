@@ -7,8 +7,9 @@ The counterpart of ``repro.core.planner``:
                        ``vmem_budget`` takes the library path.  The test is
                        ``kernels/conv_mapmajor/ops.py::fits_vmem``, the one
                        the conv wrapper enforces, and it counts exactly the
-                       bytes the CUDA kernel requests (an 8x8 output tile's
-                       input patch with its halo plus one weight slice);
+                       bytes the CUDA kernel requests (input patches of an
+                       8x8 output tile with its halo plus a ring of weight
+                       slices, ``conv_mapmajor.py::kernel_smem_bytes``);
                        under IMPRECISE_INT8, the int8 kernel's request with
                        1-byte operands.  The TPU's whole-plane formula (2-byte
                        operands under IMPRECISE_INT8 too) would refuse

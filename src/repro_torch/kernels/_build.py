@@ -37,10 +37,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "conv_mapmajor_launch": (_I, [_P, _P, _P, _P] + [_I] * 14 + [_P]),
         "conv_mapmajor_smem_bytes": (ctypes.c_longlong, [_I] * 6),
         "conv_mapmajor_max_u": (_I, []),
+        "conv_mapmajor_grid_blocks": (ctypes.c_longlong, [_I] * 10),
     },
     "matmul_mapmajor": {
-        "matmul_mapmajor_launch": (_I, [_P, _P, _P, _P] + [_I] * 6 + [_P]),
+        "matmul_mapmajor_launch": (_I, [_P] * 5 + [_I] * 6 + [_P]),
         "matmul_mapmajor_block_k": (_I, []),
+        "matmul_mapmajor_grid_blocks": (ctypes.c_longlong, [_I] * 4),
     },
     "conv_mapmajor_int8": {
         "conv_mapmajor_int8_launch": (_I, [_P] * 5 + [_I] * 14 + [_P]),

@@ -3,7 +3,11 @@
 Two kernels, each replacing a Pallas TPU kernel of
 ``repro/kernels/conv_mapmajor/conv_mapmajor.py``:
 
-- ``conv_mapmajor`` (float modes; ``kernels/csrc/conv_mapmajor.cu``);
+- ``conv_mapmajor`` (float modes; ``kernels/csrc/conv_mapmajor.cu``): an
+  implicit GEMM per block of (n, go, 64-lane slice of u_out, 8x8 output
+  tile) on the bf16 tensor cores (mma.sync), input patches and weight
+  slices staged by cp.async in rings; PRECISE runs f32 FMA on the same
+  staging;
 - ``conv_mapmajor_int8`` (int8 x int8 -> int32 with a dequant+bias+ReLU
   flush; ``kernels/csrc/conv_mapmajor_int8.cu``).
 
@@ -20,28 +24,64 @@ from typing import Optional, Tuple
 import torch
 
 from ...core.precision import ComputeMode, full_f32, int8_flush
+from ...device.profile import HOPPER_MAX_SMEM_PER_BLOCK
 from .. import _build
 
-#: The output tile one block owns (kTileH/kTileW in both sources;
-#: chip_smoke.py checks them through the shared-memory counts).
+#: The float kernel's tiling (conv_mapmajor.cu): a block owns an 8x8 tile of
+#: output pixels (4x8 under the lean staging) and a 64-lane slice of u_out,
+#: and stages input patches and a ring of weight slices, every row padded to
+#: ``row_pitch(u)`` elements.  chip_smoke.py checks the smem count built from
+#: these against the source's.
 TILE_H = 8
 TILE_W = 8
-#: The widest channel group the kernels take (kMaxU in both sources; checked
-#: against ``conv_mapmajor_max_u`` and ``conv_mapmajor_int8_max_u`` by
-#: chip_smoke.py).
+LEAN_TILE_H = 4
+BLOCK_N = 64
+#: The widest channel group the float kernel takes (kMaxU in
+#: conv_mapmajor.cu; checked against ``conv_mapmajor_max_u``).
 MAX_U = 128
+#: The int8 kernel's tile and widest channel group (kTileH, kTileW and kMaxU
+#: in conv_mapmajor_int8.cu; checked through ``conv_mapmajor_int8_smem_bytes``
+#: and ``conv_mapmajor_int8_max_u``).
+INT8_TILE_H = 8
+INT8_TILE_W = 8
+INT8_MAX_U = 128
+
+
+def row_pitch(u: int) -> int:
+    """Elements per staged row of the float kernel: u padded to the 16-deep
+    MMA step, plus 8 so neighbouring rows fall in different bank groups."""
+    return -(-u // 16) * 16 + 8
+
+
+def weight_stages(kh: int, kw: int) -> int:
+    """Weight slices in the float kernel's full ring (one more than its
+    lookahead, which a 1x1 conv keeps at one step)."""
+    return 3 if kh * kw >= 2 else 2
+
+
+def weight_rows(u_out: int) -> int:
+    """Rows of one staged weight slice: 64 lanes, or 32 for u_out <= 32."""
+    return 32 if u_out <= 32 else BLOCK_N
 
 
 def kernel_smem_bytes(kh: int, kw: int, stride: int, u: int, u_out: int,
                       mode: ComputeMode) -> int:
-    """The dynamic shared memory one block requests: the input patch of an
-    8x8 output tile with its halo, plus the (u_in, u_out + 1) weight slice,
-    in the operand type.  Equal to ``conv_mapmajor_smem_bytes`` in the CUDA
-    source (chip_smoke.py checks the two agree)."""
-    ph = (TILE_H - 1) * stride + kh
+    """The dynamic shared memory one block of the float kernel requests:
+    input patches of an output tile with its halo plus weight slices of
+    ``weight_rows(u_out)`` lanes, every row ``row_pitch(u)`` elements of the
+    operand type.  Two patches of an 8x8 tile and ``weight_stages(kh, kw)``
+    slices where that fits the H100's 232,448 B per block, else (the lean
+    staging) one patch of a 4x8 tile and two slices.  Equal to
+    ``conv_mapmajor_smem_bytes`` in the CUDA source (chip_smoke.py checks the
+    two agree)."""
     pw = (TILE_W - 1) * stride + kw
     elem = torch.empty((), dtype=mode.operand_dtype).element_size()
-    return (ph * pw * u + u * (u_out + 1)) * elem
+    row = row_pitch(u) * elem
+    full = (2 * ((TILE_H - 1) * stride + kh) * pw
+            + weight_stages(kh, kw) * weight_rows(u_out)) * row
+    if full <= HOPPER_MAX_SMEM_PER_BLOCK:
+        return full
+    return (((LEAN_TILE_H - 1) * stride + kh) * pw + 2 * weight_rows(u_out)) * row
 
 
 def kernel_smem_bytes_int8(kh: int, kw: int, stride: int, u: int,
@@ -51,8 +91,8 @@ def kernel_smem_bytes_int8(kh: int, kw: int, stride: int, u: int,
     weight slice with one padding word per row.  Equal to
     ``conv_mapmajor_int8_smem_bytes`` in the CUDA source (chip_smoke.py
     checks the two agree)."""
-    ph = (TILE_H - 1) * stride + kh
-    pw = (TILE_W - 1) * stride + kw
+    ph = (INT8_TILE_H - 1) * stride + kh
+    pw = (INT8_TILE_W - 1) * stride + kw
     return ph * pw * u + u_out * (u + 4)
 
 
@@ -216,8 +256,8 @@ def conv_mapmajor_int8(x_mm: torch.Tensor, w_mm: torch.Tensor,
     if x_mm.device.type != "cuda":
         raise ValueError(f"conv_mapmajor_int8 runs on cuda or cpu tensors, "
                          f"not {x_mm.device}")
-    if u > MAX_U or u_out > MAX_U:
-        raise ValueError(f"channel group {u}/{u_out} wider than {MAX_U}")
+    if u > INT8_MAX_U or u_out > INT8_MAX_U:
+        raise ValueError(f"channel group {u}/{u_out} wider than {INT8_MAX_U}")
     dev = x_mm.device
     x_c = x_mm.contiguous()
     w_c = w_mm.to(dev).contiguous()
@@ -245,6 +285,14 @@ def cuda_smem_bytes(kh: int, kw: int, stride: int, u: int, u_out: int,
     lib = _build.load("conv_mapmajor")
     return int(lib.conv_mapmajor_smem_bytes(kh, kw, stride, u, u_out,
                                              mode.kernel_code))
+
+
+def cuda_grid_blocks(n: int, n_go: int, u_out: int, ho: int, wo: int, kh: int,
+                     kw: int, stride: int, u: int, mode: ComputeMode) -> int:
+    """Blocks in one launch of the float kernel, by the source's count."""
+    lib = _build.load("conv_mapmajor")
+    return int(lib.conv_mapmajor_grid_blocks(n, n_go, u_out, ho, wo, kh, kw,
+                                             stride, u, mode.kernel_code))
 
 
 def cuda_smem_bytes_int8(kh: int, kw: int, stride: int, u: int,

@@ -45,7 +45,7 @@ def fits_vmem(k: int, stride: int, u: int, mode: ComputeMode, *,
     profile's ``vmem_budget``).  Under IMPRECISE_INT8 the request is the int8
     kernel's, with 1-byte operands.
 
-    The request is per block, for one 8x8 output tile, so unlike the JAX
+    The request is per block, for one output tile, so unlike the JAX
     package's whole-plane envelope it does not depend on the plane's size.
     """
     if budget is None:

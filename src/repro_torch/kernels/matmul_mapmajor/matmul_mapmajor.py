@@ -5,7 +5,10 @@ Two kernels, each replacing a Pallas TPU kernel of
 
 - ``matmul_mapmajor`` (float modes; ``kernels/csrc/matmul_mapmajor.cu``).
   Unlike the TPU kernel it folds the dense layer's bias and ReLU into its
-  flush, with the roundings the JAX package applies outside its kernel.
+  flush, with the roundings the JAX package applies outside its kernel.  It
+  splits K along the ``bk`` chunks: one launch writes each chunk's f32
+  partial product into a workspace of shape (ceil(K / bk), M, N), which the
+  wrapper allocates, and a second reduces the chunks in order and flushes.
 - ``matmul_mapmajor_int8`` (int8 x int8 -> int32, flush
   ``float(acc) * s + bias`` in f32, ReLU, cast, as the TPU kernel does;
   ``kernels/csrc/matmul_mapmajor_int8.cu``).
@@ -13,8 +16,9 @@ Two kernels, each replacing a Pallas TPU kernel of
 Each source's header says how it is tiled, what bounds it on an H100 and
 what its design does about that.  Each wrapper launches its kernel for CUDA
 tensors and takes its ``*_plain`` version for CPU tensors; it raises for
-anything else.  ``<wrapper>.launches`` counts kernel launches (and nothing
-else).
+anything else.  ``<wrapper>.launches`` counts the wrapper's calls that ran
+its kernel (one per layer call, though the float kernel is two CUDA
+launches), and nothing else.
 """
 from __future__ import annotations
 
@@ -25,9 +29,9 @@ import torch
 from ...core.precision import ComputeMode, full_f32, int8_flush
 from .. import _build
 
-#: The K depth of one shared-memory tile (BK in both sources; checked against
-#: ``matmul_mapmajor_block_k`` and ``matmul_mapmajor_int8_block_k`` by
-#: chip_smoke.py); the float kernel's ``bk`` must be a multiple of it.
+#: The K depth of one shared-memory stage (BK in both sources; checked
+#: against ``matmul_mapmajor_block_k`` and ``matmul_mapmajor_int8_block_k``
+#: by chip_smoke.py); the float kernel's ``bk`` must be a multiple of it.
 BLOCK_K = 64
 
 
@@ -64,7 +68,9 @@ def matmul_mapmajor(a: torch.Tensor, b: torch.Tensor,
                     mode: ComputeMode = ComputeMode.RELAXED, bk: int = 512,
                     apply_relu: bool = False) -> torch.Tensor:
     """(M, K) @ (K, N) under a compute mode, with an optional fused
-    bias (N,) and ReLU.  Returns ``mode.out_dtype``; no dimension is padded."""
+    bias (N,) and ReLU.  Returns ``mode.out_dtype``; no dimension is padded.
+    On the card: two CUDA launches (split over the ``bk`` chunks, then the
+    ordered reduction and flush), counted as one in ``launches``."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     m, k = a.shape
@@ -84,17 +90,26 @@ def matmul_mapmajor(a: torch.Tensor, b: torch.Tensor,
     bias_c = (bias.to(device=a.device, dtype=torch.float32).contiguous()
               if bias is not None else None)
     out = torch.empty((m, n), dtype=mode.out_dtype, device=a.device)
+    # Each bk chunk's f32 partial product, reduced in chunk order.
+    ws = torch.empty((-(-k // bk), m, n), dtype=torch.float32, device=a.device)
     lib = _build.load("matmul_mapmajor")
     err = lib.matmul_mapmajor_launch(
         a_c.data_ptr(), b_c.data_ptr(),
         bias_c.data_ptr() if bias_c is not None else None, out.data_ptr(),
-        m, n, k, bk, mode.kernel_code, int(apply_relu), _build.stream_of(a_c))
+        ws.data_ptr(), m, n, k, bk, mode.kernel_code, int(apply_relu),
+        _build.stream_of(a_c))
     _build.check_launch("matmul_mapmajor", err)
     matmul_mapmajor.launches += 1
     return out
 
 
 matmul_mapmajor.launches = 0
+
+
+def cuda_grid_blocks(m: int, n: int, k: int, bk: int) -> int:
+    """Blocks of the float kernel's split launch, by the source's count."""
+    lib = _build.load("matmul_mapmajor")
+    return int(lib.matmul_mapmajor_grid_blocks(m, n, k, bk))
 
 
 def matmul_mapmajor_int8_plain(a: torch.Tensor, b: torch.Tensor,

@@ -19,10 +19,13 @@ from repro_torch.core.layout import to_map_major
 from repro_torch.core.parallelism import conv_olp
 from repro_torch.core.precision import ComputeMode, mode_tolerance
 from repro_torch.kernels import _build
+from repro_torch.cnn import alexnet
+from repro_torch.core import (IMPL_KERNEL, PlannerConfig, lower_network,
+                              plan_network)
 from repro_torch.kernels.conv_mapmajor.conv_mapmajor import (
     MAX_U, conv_mapmajor, conv_mapmajor_int8, conv_mapmajor_int8_plain,
-    conv_mapmajor_plain, cuda_smem_bytes_int8, kernel_smem_bytes,
-    kernel_smem_bytes_int8)
+    conv_mapmajor_plain, cuda_smem_bytes, cuda_smem_bytes_int8,
+    kernel_smem_bytes, kernel_smem_bytes_int8)
 from repro_torch.kernels.conv_mapmajor.ops import conv2d_mapmajor, fits_vmem
 from repro_torch.kernels.conv_mapmajor.ref import conv_mapmajor_ref, pack_weights
 from repro_torch.kernels.matmul_mapmajor.matmul_mapmajor import (
@@ -147,6 +150,81 @@ def test_wrappers_refuse_other_devices_and_bad_blocking():
     a, w = torch.randn(2, 64), torch.randn(64, 3)
     assert torch.equal(matmul_mapmajor(a, w, bk=64, mode=ComputeMode.IMPRECISE_INT8),
                        matmul_mapmajor(a, w, bk=64, mode=ComputeMode.RELAXED))
+
+
+# (layer, k, stride, bytes with 2-byte operands, bytes with f32 operands):
+# two patches of an 8x8 output tile with its halo plus three 64-lane weight
+# slices, every row 128 + 8 elements; where that is over the 232,448 B
+# budget (conv1, conv2 in f32) the lean staging: one patch of a 4x8 tile
+# and two slices.
+ALEXNET_SMEM = [("conv1", 11, 4, 278_800, 557_600),
+                ("conv2", 5, 1, 130_560, 121_856),
+                ("conv3", 3, 1, 106_624, 213_248),
+                ("conv4", 3, 1, 106_624, 213_248),
+                ("conv5", 3, 1, 106_624, 213_248)]
+
+
+@pytest.mark.parametrize("layer,k,stride,bf16_bytes,f32_bytes", ALEXNET_SMEM,
+                         ids=[c[0] for c in ALEXNET_SMEM])
+def test_kernel_smem_bytes_at_alexnet_shapes(layer, k, stride, bf16_bytes,
+                                             f32_bytes):
+    """The float kernel's request at u = 128: conv1 stays over the 232,448 B
+    block budget, conv2-conv5 fit (PRECISE, f32 operands, too)."""
+    for mode in (ComputeMode.RELAXED, ComputeMode.IMPRECISE,
+                 ComputeMode.IMPRECISE_INT8):
+        assert kernel_smem_bytes(k, k, stride, 128, 128, mode) == bf16_bytes
+    assert kernel_smem_bytes(k, k, stride, 128, 128, ComputeMode.PRECISE) == f32_bytes
+    assert (bf16_bytes > 232_448) == (layer == "conv1")
+    assert (f32_bytes > 232_448) == (layer == "conv1")
+
+
+# Kernel-routed layers of full-width AlexNet's plan per planned batch.  A
+# batch-1 plan sends conv3-conv5 to cuDNN by rule 3 (memory-bound: AI about
+# 150 < the bf16 ridge 295), not by the envelope; chip_smoke.py serves batch
+# 1 and 8 from the batch-8 plan.
+ALEXNET_KERNEL_LAYERS = {
+    1: ["conv2", "fc6", "fc7", "fc8"],
+    8: ["conv2", "conv3", "conv4", "conv5", "fc6", "fc7", "fc8"]}
+
+
+def _one_slice_smem_bytes(k, stride, u, u_out, elem):
+    """The envelope of an FP32-FMA design: one 8x8 tile's unpadded patch
+    plus a single (u, u_out + 1) weight slice."""
+    return ((7 * stride + k) ** 2 * u + u * (u_out + 1)) * elem
+
+
+@pytest.mark.parametrize("mode", FLOAT_MODES, ids=lambda m: m.value)
+def test_kernel_envelope_covers_the_one_slice_envelope(mode):
+    """The wrapper refuses no shape that a one-slice FP32-FMA design took:
+    wherever that request fits the 232,448 B block budget (k <= 11,
+    stride <= 4), this kernel's does too."""
+    elem = 4 if mode is ComputeMode.PRECISE else 2
+    for k in range(1, 12):
+        for stride in range(1, 5):
+            for u in (1, 3, 4, 8, 12, 16, 32, 64, 100, 128):
+                for u_out in (1, 7, 29, 33, u):
+                    if _one_slice_smem_bytes(k, stride, u, u_out, elem) <= 232_448:
+                        assert kernel_smem_bytes(k, k, stride, u, u_out,
+                                                 mode) <= 232_448
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("mode", [ComputeMode.RELAXED, ComputeMode.IMPRECISE],
+                         ids=lambda m: m.value)
+def test_full_width_alexnet_routing_on_h100(mode, batch):
+    """Full-width AlexNet on the h100 profile (shapes only): conv1 stays on
+    the library path by rule 1 (over the block envelope), conv2-conv5 fit
+    it, and rule 3 decides the rest."""
+    net = alexnet()
+    modes = {n: mode for n in net.inexactable_layers}
+    plan = plan_network(net, modes=modes, graph=lower_network(net),
+                        config=PlannerConfig(batch=batch, allow_pallas=True))
+    assert plan.for_layer("conv1").impl != IMPL_KERNEL
+    assert plan.for_layer("conv1").reason.startswith("rule1")
+    assert not any(plan.for_layer(f"conv{i}").reason.startswith("rule1")
+                   for i in range(2, 6))
+    assert [n for n, lp in plan if lp.impl == IMPL_KERNEL] == \
+        ALEXNET_KERNEL_LAYERS[batch]
 
 
 # ------------------------------------------------------------ on the card --
@@ -288,3 +366,81 @@ def test_int8_sources_agree_with_python_constants(cuda):
     assert _build.load("conv_mapmajor_int8").conv_mapmajor_int8_max_u() == MAX_U
     assert _build.load("matmul_mapmajor_int8").matmul_mapmajor_int8_block_k() \
         == BLOCK_K
+
+
+# n, gi, go, u, u_out, ho, wo, k, stride: u in {4, 8, 16, 128}, u_out < u,
+# strides 2 and 4, outputs that are not multiples of the tile, 1x1, and the
+# lean staging (5x5/2 at u = 128; the f32 cases at 11x11/4 and 3x3/2).
+RAGGED_CONV_CASES = [
+    (1, 1, 1, 4, 4, 5, 9, 3, 1), (2, 2, 1, 8, 5, 7, 3, 3, 2),
+    (1, 3, 2, 16, 7, 6, 11, 5, 1), (1, 1, 1, 8, 8, 3, 5, 11, 4),
+    (2, 2, 3, 128, 96, 13, 13, 3, 1), (1, 1, 2, 128, 128, 27, 27, 5, 1),
+    (1, 2, 1, 16, 16, 9, 10, 1, 1), (3, 1, 1, 128, 72, 4, 17, 3, 2),
+    (1, 2, 1, 128, 128, 5, 6, 5, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", FLOAT_MODES, ids=lambda m: m.value)
+@pytest.mark.parametrize("n,gi,go,u,u_out,ho,wo,k,stride", RAGGED_CONV_CASES)
+def test_conv_kernel_ragged_shapes_on_card(cuda, n, gi, go, u, u_out, ho, wo,
+                                           k, stride, mode):
+    rng = np.random.default_rng(10)
+    hp, wp = (ho - 1) * stride + k, (wo - 1) * stride + k + 1
+    x = to_torch(rng.standard_normal((n, gi, hp, wp, u)).astype(np.float32))
+    w = to_torch((rng.standard_normal((go, u_out, gi, k, k, u))
+                  / np.sqrt(gi * k * k * u)).astype(np.float32))
+    b = to_torch(rng.standard_normal((go, u_out)).astype(np.float32))
+    got = conv_mapmajor(x.to(cuda), w.to(cuda), b.to(cuda), stride=stride,
+                        out_hw=(ho, wo), mode=mode, apply_relu=True)
+    torch.cuda.synchronize()
+    want = conv_mapmajor_plain(x, w, b, stride=stride, out_hw=(ho, wo),
+                               mode=mode, apply_relu=True)
+    assert_close(got, want, mode, rtol=_kernel_rtol(mode))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", FLOAT_MODES, ids=lambda m: m.value)
+@pytest.mark.parametrize("m,k,n,bk", [(1, 1000, 70, 128), (3, 640, 200, 256),
+                                      (8, 1200, 130, 512), (17, 700, 33, 128),
+                                      (8, 4100, 1000, 512)])
+def test_matmul_kernel_ragged_shapes_on_card(cuda, m, k, n, bk, mode):
+    """M in {1, 3, 8, 17}, N not a multiple of 64, K not a multiple of bk,
+    several bk chunks."""
+    rng = np.random.default_rng(11)
+    a = to_torch(rng.standard_normal((m, k)).astype(np.float32))
+    b = to_torch((rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32))
+    bias = to_torch(rng.standard_normal((n,)).astype(np.float32))
+    got = matmul_mapmajor(a.to(cuda), b.to(cuda), bias.to(cuda), mode=mode,
+                          bk=bk, apply_relu=True)
+    torch.cuda.synchronize()
+    want = matmul_mapmajor_plain(a, b, bias, mode=mode, bk=bk, apply_relu=True)
+    assert_close(got, want, mode, rtol=_kernel_rtol(mode))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", FLOAT_MODES, ids=lambda m: m.value)
+def test_matmul_kernel_is_deterministic_on_card(cuda, mode):
+    """The chunks are reduced in order without atomics: two runs are
+    bit-equal, and one layer call counts one launch."""
+    rng = np.random.default_rng(12)
+    a = to_torch(rng.standard_normal((8, 9216)).astype(np.float32)).to(cuda)
+    b = to_torch((rng.standard_normal((9216, 4096)) / 96).astype(np.float32)).to(cuda)
+    before = matmul_mapmajor.launches
+    y1 = matmul_mapmajor(a, b, mode=mode, bk=512)
+    y2 = matmul_mapmajor(a, b, mode=mode, bk=512)
+    torch.cuda.synchronize()
+    assert matmul_mapmajor.launches == before + 2
+    assert torch.equal(y1, y2)
+
+
+@pytest.mark.gpu
+def test_float_sources_agree_with_python_constants(cuda):
+    """The smem count rule 1 reads and MAX_U/BLOCK_K equal the float
+    sources' own."""
+    for k, stride in [(11, 4), (5, 1), (3, 1), (1, 1), (7, 2)]:
+        for u in (4, 8, 16, 100, 128):
+            for mode in FLOAT_MODES:
+                assert kernel_smem_bytes(k, k, stride, u, u, mode) == \
+                    cuda_smem_bytes(k, k, stride, u, u, mode)
+    assert _build.load("conv_mapmajor").conv_mapmajor_max_u() == MAX_U
+    assert _build.load("matmul_mapmajor").matmul_mapmajor_block_k() == BLOCK_K
