@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--baseline TREE]
 
 Phases; each raises on failure, so a failing phase never exits 0:
 
 1. the card's name and power limit; all four CUDA kernels built from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
+   the constants, shared-memory counts (rule 1), K splits and blocks per
+   launch that Python restates checked against the sources';
 2. each kernel against its plain PyTorch version on the card, at the shapes
    full-width AlexNet gives it (conv2-conv5, fc6-fc8), batch 1 and 8: the
    float kernels in RELAXED, IMPRECISE and PRECISE, TF32 off; the int8
@@ -35,10 +37,21 @@ Phases; each raises on failure, so a failing phase never exits 0:
    kernel's ratio to the library call; one kernel call between CUDA events,
    host dispatch included; the plain version (CUDA events); the bound from
    bytes and operations; the float kernels under RELAXED and IMPRECISE
-   (what Stage C ships) and their blocks per launch; end to end (CUDA
+   (what Stage C ships); every kernel's blocks per launch; for the int8
+   conv, whether one PyTorch call computes an int8 convolution on the card
+   (what was tried and why it failed, where none does); end to end (CUDA
    events) at batch 1 and 8 for the RELAXED and the int8 program;
 6. one ``torch.profiler`` window of three batch-8 requests per program:
    device time by kernel and the device's busy share of the host-clock time.
+
+With ``--baseline TREE`` (an older checkout of this repository that has
+the int8 datapath, e.g. unpacked from ``git archive`` under ``build/``),
+phase 5 also runs :func:`int8_probe` on TREE's package in a child process
+before this tree's times and again after them, and on this tree's in
+between: the two int8 kernels' device times at the same shapes, and the
+forced IMPRECISE_INT8 program's fc8 logits on fixed images, which must be
+bit-equal across the trees (the int8 kernels equal their plain versions,
+which neither tree changed).  Each shape must be faster in this tree.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA or
@@ -152,6 +165,115 @@ def graph_ms(calls, runs: int = 5) -> float:
     return statistics.median(times)
 
 
+def int8_probe() -> dict:
+    """The int8 kernels' device times at AlexNet's shapes, batch 1 and 8
+    (weights cold in L2, as in phase 5), and the forced IMPRECISE_INT8
+    program's fc8 logits and probabilities on fixed images.  It imports the
+    ``repro_torch`` on ``sys.path`` and calls only what every tree with the
+    int8 datapath has, so ``--baseline`` can run it on an older tree's
+    package."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.cnn import alexnet, init_network_params
+    from repro_torch.core import (ComputeMode, PlannerConfig, collect_activations,
+                                  synthesize)
+    from repro_torch.data import imagenet_like
+    from repro_torch.kernels.conv_mapmajor.conv_mapmajor import conv_mapmajor_int8
+    from repro_torch.kernels.matmul_mapmajor.matmul_mapmajor import matmul_mapmajor_int8
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def rand_i8(*shape):
+        return torch.randint(-127, 128, shape, device=dev, generator=gen, dtype=torch.int8)
+
+    times = {}
+    for batch in (1, 8):
+        for name, cin, hw, k, cout in CONV_SHAPES:
+            gi, go, p = -(-cin // 128), -(-cout // 128), k // 2
+            x8 = F.pad(rand_i8(batch, gi, hw, hw, 128), (0, 0, p, p, p, p))
+            w8 = rand_i8(go, 128, gi, k, k, 128)
+            s8 = torch.rand(go, 128, device=dev, generator=gen) * 1e-4
+            b = torch.randn(go, 128, device=dev, generator=gen) * 0.1
+            times[f"{name} B={batch}"] = graph_ms(
+                [lambda wc=wc: conv_mapmajor_int8(x8, wc, s8, b, out_hw=(hw, hw),
+                                                  apply_relu=True)
+                 for wc in cold_copies(w8)])
+        for name, kdim, ndim in MM_SHAPES:
+            a8, wm8 = rand_i8(batch, kdim), rand_i8(kdim, ndim)
+            s8 = torch.rand(ndim, device=dev, generator=gen) * 1e-5
+            b = torch.randn(ndim, device=dev, generator=gen) * 0.1
+            times[f"{name} B={batch}"] = graph_ms(
+                [lambda wc=wc: matmul_mapmajor_int8(a8, wc, s8, b, apply_relu=True)
+                 for wc in cold_copies(wm8)])
+    net = alexnet()
+    params = init_network_params(net, SEED, "cuda")
+    img_gen = torch.Generator().manual_seed(SEED + 2)
+    cal_x, cal_y = imagenet_like(img_gen, 16, hw=227, num_classes=1000, device="cuda")
+    prog = synthesize(net, params, (cal_x, cal_y), device="h100",
+                      planner_config=PlannerConfig(batch=8),
+                      forced_mode=ComputeMode.IMPRECISE_INT8)
+    x, _ = imagenet_like(img_gen, 8, hw=227, num_classes=1000, device="cuda")
+    z = collect_activations(net, prog.prepared, x, plan=prog.plan)["fc8"]
+    y = prog.for_batch(8)(x)
+    torch.cuda.synchronize()
+    return {"times": times, "logits": z.cpu(), "probs": y.cpu(),
+            "act_scales": dict(prog.synthesis_report.act_scales)}
+
+
+def baseline_probe(tree: str, out_path: str) -> dict:
+    """:func:`int8_probe` on ``tree``'s package, in a child process that
+    builds that tree's kernels into its own ``build/``."""
+    import torch
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--probe-src", os.path.join(os.path.abspath(tree), "src"),
+                    "--probe-out", out_path], check=True, timeout=600)
+    return torch.load(out_path)
+
+
+def int8_conv_library(x_nchw, w_copies, pad: int):
+    """One PyTorch call that computes an int8 convolution on the card with
+    int32 accumulation inside, for each weight copy, or None; and what was
+    tried, with the error each attempt raised.  ``x_nchw`` (N, C, H, W) and
+    the copies (O, C, k, k) are int8 on the card."""
+    import torch
+    import torch.nn.functional as F
+    tried = []
+    exact = F.conv2d(x_nchw.double(), w_copies[0].double(), padding=pad)
+    try:
+        y = F.conv2d(x_nchw, w_copies[0], padding=pad)
+        torch.cuda.synchronize()
+        check(y.dtype == torch.int32 and torch.equal(y.double(), exact),
+              f"F.conv2d on int8 returns {y.dtype}, not the exact int32 sums")
+        return ([lambda wc=wc: F.conv2d(x_nchw, wc, padding=pad) for wc in w_copies],
+                "F.conv2d on int8 tensors", tried)
+    except Exception as e:  # noqa: BLE001 - what the build lacks is the finding
+        tried.append(f"F.conv2d(int8, int8): {type(e).__name__}: {str(e).splitlines()[0][:200]}")
+    try:
+        # The quantized cuDNN conv: int8 operands, int32 sums, the output
+        # requantized to int8 at out_scale.
+        out_scale = float(exact.abs().max()) / 127
+        xq = torch.quantize_per_tensor(x_nchw.float(), 1.0, 0, torch.qint8) \
+            .contiguous(memory_format=torch.channels_last)
+        packs = [torch.ops.quantized.conv2d_prepack(
+            torch.quantize_per_tensor(wc.float(), 1.0, 0, torch.qint8), None,
+            [1, 1], [pad, pad], [1, 1], 1) for wc in w_copies]
+        y = torch.ops.quantized.conv2d(xq, packs[0], out_scale, 0)
+        torch.cuda.synchronize()
+        want = torch.clamp(torch.round(exact / out_scale), -128, 127)
+        check(y.device.type == "cuda"
+              and (y.int_repr().double() - want).abs().max().item() <= 1,
+              "quantized::conv2d disagrees with the exact sums requantized")
+        return ([lambda pk=pk: torch.ops.quantized.conv2d(xq, pk, out_scale, 0)
+                 for pk in packs],
+                "torch.ops.quantized.conv2d (quantized cuDNN; int8 out, requantized)", tried)
+    except Exception as e:  # noqa: BLE001
+        tried.append(f"torch.ops.quantized.conv2d on CUDA qint8: {type(e).__name__}: "
+                     f"{str(e).splitlines()[0][:200]}")
+    return None, None, tried
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -182,13 +304,23 @@ def logit_check(z, z_cpu, limit_row):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
+    ap.add_argument("--baseline", metavar="TREE",
+                    help="an older checkout whose int8 kernels and int8 logits phase 5 "
+                         "compares with this tree's, in this call")
+    ap.add_argument("--probe-src", help=argparse.SUPPRESS)   # the child of --baseline
+    ap.add_argument("--probe-out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    repo = os.path.dirname(os.path.abspath(__file__))
+    if args.probe_src:
+        sys.path.insert(0, args.probe_src)
+        torch.save(int8_probe(), args.probe_out)
+        return 0
+    sys.path.insert(0, os.path.join(repo, "src"))
     import torch.nn.functional as F
 
     from repro_torch.cnn import alexnet, init_network_params
@@ -198,11 +330,14 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.conv_mapmajor.conv_mapmajor import (
         INT8_MAX_U, MAX_U, conv_mapmajor, conv_mapmajor_int8, conv_mapmajor_int8_plain,
-        conv_mapmajor_plain, cuda_grid_blocks, cuda_smem_bytes, cuda_smem_bytes_int8,
-        kernel_smem_bytes, kernel_smem_bytes_int8)
+        conv_mapmajor_plain, cuda_grid_blocks, cuda_grid_blocks_int8, cuda_smem_bytes,
+        cuda_smem_bytes_int8, kernel_grid_blocks_int8, kernel_smem_bytes,
+        kernel_smem_bytes_int8)
     from repro_torch.kernels.matmul_mapmajor.matmul_mapmajor import (
-        BLOCK_K, cuda_grid_blocks as mm_grid_blocks, matmul_mapmajor,
+        BLOCK_K, cuda_grid_blocks as mm_grid_blocks, int8_grid_blocks, matmul_mapmajor,
         matmul_mapmajor_int8, matmul_mapmajor_int8_plain, matmul_mapmajor_plain)
+    from repro_torch.kernels.matmul_mapmajor.matmul_mapmajor import \
+        cuda_grid_blocks_int8 as mm_grid_blocks_int8
     from repro_torch.kernels.matmul_mapmajor.ops import block_k
 
     counted = {"conv_mapmajor": conv_mapmajor, "matmul_mapmajor": matmul_mapmajor,
@@ -266,6 +401,29 @@ def main(argv=None) -> int:
         check(kernel_smem_bytes_int8(k, k, s, 128, 128)
               == cuda_smem_bytes_int8(k, k, s, 128, 128),
               "int8 rule-1 envelope disagrees with the int8 kernel's smem request")
+    # The int8 conv's request and blocks per launch at k, s of conv1, conv2
+    # and conv3-conv5, full and lean staging, 64- and 32-lane slices.
+    int8_smem = {}
+    for k, s in [(11, 4), (5, 1), (3, 1)]:
+        for u, u_out, s2 in [(128, 128, s), (128, 128, 4), (100, 7, s), (4, 16, s),
+                             (36, 33, 2)]:
+            py = kernel_smem_bytes_int8(k, k, s2, u, u_out)
+            check(py == cuda_smem_bytes_int8(k, k, s2, u, u_out),
+                  "int8 rule-1 envelope disagrees with the int8 kernel's smem request")
+            check(py <= 232448, f"int8 request {py} B over the block budget")
+            for n, gi, hw in [(1, 3, 13), (8, 1, 27)]:
+                args8 = (n, gi, 3, u_out, hw, hw, k, k, s2, u)
+                check(kernel_grid_blocks_int8(*args8) == cuda_grid_blocks_int8(*args8),
+                      "int8 conv blocks per launch disagree with the source's")
+        int8_smem[f"{k}x{k}/{s}"] = kernel_smem_bytes_int8(k, k, s, 128, 128)
+    print(f"int8 conv smem per block at u = 128: {int8_smem}")
+    for batch in (1, 8):
+        for name, kdim, ndim in MM_SHAPES:
+            check(int8_grid_blocks(batch, ndim, kdim) == mm_grid_blocks_int8(batch, ndim, kdim),
+                  "int8 matmul blocks (and so K splits) disagree with the source's")
+            check(int8_grid_blocks(batch, ndim, kdim) >= 2 * 132,
+                  f"int8 matmul {name} B={batch}: fewer than 2 blocks per SM")
+    results["int8_conv_smem_bytes"] = int8_smem
     phase_done("build")
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -593,6 +751,9 @@ def main(argv=None) -> int:
     # call_ms is one call between CUDA events, host dispatch included.
     relaxed, imprecise = ComputeMode.RELAXED, ComputeMode.IMPRECISE
     bf16 = torch.bfloat16
+    probe_dir = os.path.join(repo, "build", "int8_probe")
+    if args.baseline:   # the older tree first: parent, this tree, this tree, parent
+        base1 = baseline_probe(args.baseline, os.path.join(probe_dir, "baseline_1.pt"))
     rows = []
     shapes = {name: (cin, cout) for name, cin, _, _, cout in CONV_SHAPES}
     cudnn_ms = {}
@@ -633,8 +794,10 @@ def main(argv=None) -> int:
                 flops, nbytes, H100_BF16_FLOPS, kernel_calls[imprecise],
                 cuda_grid_blocks(batch, go, w.shape[1], hw, hw, k, k, 1, 128, relaxed))
         cudnn_ms[(name, batch)] = r["library_ms"]
+    int8_conv_lib = {}
     for (name, batch), (x8, w8, s8, b, hw) in conv8_inputs.items():
         k = w8.shape[3]
+        gi, go = x8.shape[1], w8.shape[0]
         cin, cout = shapes[name]
         calls = [lambda wc=wc: conv_mapmajor_int8(x8, wc, s8, b, out_hw=(hw, hw),
                                                   apply_relu=True)
@@ -642,12 +805,25 @@ def main(argv=None) -> int:
         plain = cuda_ms(lambda: conv_mapmajor_int8_plain(x8, w8, s8, b, out_hw=(hw, hw),
                                                          apply_relu=True), reps=3)
         # The layer's own work: 1-byte activations and weights, bf16 out, f32
-        # scale and bias; no PyTorch call computes an int8 conv.
+        # scale and bias; the library call (if any) on the layer's own NCHW
+        # int8 operands.
+        x_nchw = x8[:, :, k // 2:k // 2 + hw, k // 2:k // 2 + hw, :] \
+            .permute(0, 1, 4, 2, 3).reshape(batch, gi * 128, hw, hw)[:, :cin].contiguous()
+        w_oihw = w8.permute(0, 1, 2, 5, 3, 4).reshape(go * 128, gi * 128, k, k)[
+            :cout, :cin].contiguous()
+        lib_calls, lib_what, tried = int8_conv_library(x_nchw, cold_copies(w_oihw), k // 2)
+        int8_conv_lib[f"{name} B={batch}"] = {"call": lib_what, "tried": tried}
         flops = 2.0 * batch * hw * hw * cout * cin * k * k
         nbytes = batch * cin * hw * hw + cout * cin * k * k + 2 * batch * cout * hw * hw \
             + 8 * cout
-        row("conv_mapmajor_int8", name, batch, calls, plain, None, flops, nbytes,
-            H100_INT8_OPS)
+        row("conv_mapmajor_int8", name, batch, calls, plain, lib_calls, flops, nbytes,
+            H100_INT8_OPS, blocks=cuda_grid_blocks_int8(batch, gi, go, w8.shape[1], hw,
+                                                        hw, k, k, 1, 128))
+        del calls, lib_calls
+    first = next(iter(int8_conv_lib.values()))
+    print(f"int8 conv library call: {first['call'] or 'none'}; tried: "
+          + ("; ".join(first["tried"]) or "-"))
+    results["int8_conv_library"] = int8_conv_lib
     for (name, batch), (a, wm, bias) in mm_inputs.items():
         ab, wb = a.to(bf16), wm.to(bf16)
         kdim, ndim = wm.shape
@@ -683,12 +859,13 @@ def main(argv=None) -> int:
         flops = 2.0 * batch * kdim * ndim
         nbytes = batch * kdim + kdim * ndim + 2 * batch * ndim + 8 * ndim
         row("matmul_mapmajor_int8", name, batch, calls, plain, lib_calls, flops, nbytes,
-            H100_INT8_OPS)
+            H100_INT8_OPS, blocks=mm_grid_blocks_int8(batch, ndim, kdim))
         del calls, lib_calls
     print("kernel times (ms, device, weights cold in L2): kernel [IMPRECISE] | one call "
           "with host dispatch | plain | library | bound (by) | kernel/library | blocks per "
           "launch; float kernels RELAXED, IMPRECISE in brackets; int8 library: "
-          "torch._int_mm at M=32, conv none (bf16 cuDNN beside, and the ratio to it)")
+          "torch._int_mm at M=32; conv: the int8 call above, or none (bf16 cuDNN beside, "
+          "and the ratio to it)")
     per_shape = []
     for r in rows:
         t_ops = r["flops"] / r.pop("peak") * 1e3
@@ -696,7 +873,10 @@ def main(argv=None) -> int:
         bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
         key = (r["layer"], r["batch"])
         lib = r["library_ms"]
-        lib_s = f"{lib:.4f}" if lib is not None else f"none (bf16 cuDNN {cudnn_ms[key]:.4f})"
+        lib_s = f"{lib:.4f}" if lib is not None else "none"
+        if r["kernel"] == "conv_mapmajor_int8":
+            r["ratio_to_bf16_cudnn"] = r["ms"] / cudnn_ms[key]
+            lib_s += f" (bf16 cuDNN {cudnn_ms[key]:.4f}: {r['ratio_to_bf16_cudnn']:.2f}x)"
         r.update(bound_ms=bound, bound_by=by,
                  ratio_to_library=r["ms"] / (lib if lib is not None else cudnn_ms[key]))
         imp_s = f" [{r['imprecise_ms']:.4f}]" if r["imprecise_ms"] is not None else ""
@@ -706,6 +886,35 @@ def main(argv=None) -> int:
               f"{r['ratio_to_library']:.2f}x{blk_s}")
         per_shape.append(r)
     results["per_shape"] = per_shape
+
+    if args.baseline:
+        ours = int8_probe()
+        base2 = baseline_probe(args.baseline, os.path.join(probe_dir, "baseline_2.pt"))
+        main_ms = {f"{r['layer']} B={r['batch']}": r["ms"] for r in per_shape
+                   if r["kernel"].endswith("int8")}
+        print(f"int8 kernels, baseline {args.baseline} vs this tree (ms, device, weights cold "
+              "in L2): baseline 1 | this tree (phase 5) | this tree (probe) | baseline 2 | "
+              "speed-up (baselines' mean / this tree's mean)")
+        compare = {}
+        for key, old1 in base1["times"].items():
+            old2, new2 = base2["times"][key], ours["times"][key]
+            new1 = main_ms[key]
+            gain = (old1 + old2) / (new1 + new2)
+            compare[key] = {"baseline": [old1, old2], "this_tree": [new1, new2],
+                            "speedup": gain}
+            print(f"  {key:10s} {old1:.4f} | {new1:.4f} | {new2:.4f} | {old2:.4f} | "
+                  f"{gain:.2f}x")
+            check(max(new1, new2) < min(old1, old2),
+                  f"int8 kernel at {key} not faster than the baseline's")
+        same = [torch.equal(ours["logits"], b["logits"]) for b in (base1, base2)]
+        print(f"int8 program fc8 logits, this tree vs the baseline: "
+              f"{'bit-equal' if all(same) else 'DIFFER'} (both baseline runs); act_scales "
+              f"{'equal' if ours['act_scales'] == base1['act_scales'] else 'differ'}")
+        check(all(same), "the int8 program's logits differ from the baseline's")
+        check(all(torch.equal(ours["probs"], b["probs"]) for b in (base1, base2)),
+              "the int8 program's probabilities differ from the baseline's")
+        results["baseline"] = {"tree": args.baseline, "int8_kernels": compare,
+                               "int8_logits_bit_equal": all(same)}
 
     e2e = {}
     for label, program, outs in (("relaxed", prog, served), ("int8", prog8, served8)):
@@ -788,8 +997,8 @@ def main(argv=None) -> int:
                       + ("IMPRECISE_INT8" if program is prog8 else "RELAXED")}
         if kern == "conv_mapmajor_int8":
             entry["library_note"] = (
-                "no PyTorch call computes an int8 conv; bf16 F.conv2d on the same "
-                f"layers: {sum(cudnn_ms[(r['layer'], 8)] for r in sel):.4f} ms")
+                f"int8 library call: {first['call'] or 'none'}; bf16 F.conv2d on the "
+                f"same layers: {sum(cudnn_ms[(r['layer'], 8)] for r in sel):.4f} ms")
         summary.append(entry)
     results["kernels"] = summary
     results["phase_seconds"] = phase_s

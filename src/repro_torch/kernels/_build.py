@@ -48,9 +48,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "conv_mapmajor_int8_launch": (_I, [_P] * 5 + [_I] * 14 + [_P]),
         "conv_mapmajor_int8_smem_bytes": (ctypes.c_longlong, [_I] * 5),
         "conv_mapmajor_int8_max_u": (_I, []),
+        "conv_mapmajor_int8_grid_blocks": (ctypes.c_longlong, [_I] * 10),
     },
     "matmul_mapmajor_int8": {
-        "matmul_mapmajor_int8_launch": (_I, [_P] * 5 + [_I] * 5 + [_P]),
+        "matmul_mapmajor_int8_launch": (_I, [_P] * 6 + [_I] * 6 + [_P]),
+        "matmul_mapmajor_int8_grid_blocks": (ctypes.c_longlong, [_I] * 3),
         "matmul_mapmajor_int8_block_k": (_I, []),
     },
 }

@@ -9,7 +9,9 @@ Two kernels, each replacing a Pallas TPU kernel of
   slices staged by cp.async in rings; PRECISE runs f32 FMA on the same
   staging;
 - ``conv_mapmajor_int8`` (int8 x int8 -> int32 with a dequant+bias+ReLU
-  flush; ``kernels/csrc/conv_mapmajor_int8.cu``).
+  flush; ``kernels/csrc/conv_mapmajor_int8.cu``): the same implicit GEMM
+  and staging with 1-byte operands, on the int8 tensor cores (mma.sync
+  m16n8k32 s8 -> s32), rows padded to ``int8_row_pitch(u)`` bytes.
 
 Each source's header says how it is tiled, what bounds it on an H100 and
 what its design does about that.  Each wrapper launches its kernel for CUDA
@@ -41,10 +43,23 @@ BLOCK_N = 64
 MAX_U = 128
 #: The int8 kernel's tile and widest channel group (kTileH, kTileW and kMaxU
 #: in conv_mapmajor_int8.cu; checked through ``conv_mapmajor_int8_smem_bytes``
-#: and ``conv_mapmajor_int8_max_u``).
+#: and ``conv_mapmajor_int8_max_u``).  Its lean tile, lane slices and weight
+#: ring are the float kernel's (``LEAN_TILE_H``, ``weight_rows``,
+#: ``weight_stages``).
 INT8_TILE_H = 8
 INT8_TILE_W = 8
 INT8_MAX_U = 128
+#: The int8 kernel's split of the (gi, kh, kw) walk over a thread block
+#: cluster (kSMs, kSplitMaxBlocks, kMaxSplit, kMinSteps, kPartialBytes in the
+#: source): only grids of at most a quarter of an H100's 132 SMs are split,
+#: to about one block per SM, at most 8 blocks a cluster and at least 4
+#: steps a block, where a block's shared memory holds its 16 int32 partial
+#: sums a thread.
+INT8_SMS = 132
+INT8_SPLIT_MAX_BLOCKS = INT8_SMS // 4
+INT8_MAX_SPLIT = 8
+INT8_MIN_STEPS = 4
+INT8_PARTIAL_BYTES = 16 * 4 * 256
 
 
 def row_pitch(u: int) -> int:
@@ -84,16 +99,60 @@ def kernel_smem_bytes(kh: int, kw: int, stride: int, u: int, u_out: int,
     return (((LEAN_TILE_H - 1) * stride + kh) * pw + 2 * weight_rows(u_out)) * row
 
 
+def int8_row_pitch(u: int) -> int:
+    """Bytes per staged row of the int8 kernel: u padded to the 32-deep MMA
+    step, plus 16 so neighbouring rows fall in different bank groups."""
+    return -(-u // 32) * 32 + 16
+
+
+def _int8_staging(kh: int, kw: int, stride: int, u: int,
+                  u_out: int) -> Tuple[int, int]:
+    """(tile height, bytes) of the int8 kernel's staging: the full one (8x8
+    tile) where it fits the H100's block budget, else the lean one (4x8)."""
+    pw = (INT8_TILE_W - 1) * stride + kw
+    row = int8_row_pitch(u)
+    full = (2 * ((INT8_TILE_H - 1) * stride + kh) * pw
+            + weight_stages(kh, kw) * weight_rows(u_out)) * row
+    if full <= HOPPER_MAX_SMEM_PER_BLOCK:
+        return INT8_TILE_H, full
+    return (LEAN_TILE_H,
+            (((LEAN_TILE_H - 1) * stride + kh) * pw + 2 * weight_rows(u_out)) * row)
+
+
 def kernel_smem_bytes_int8(kh: int, kw: int, stride: int, u: int,
                            u_out: int) -> int:
-    """The dynamic shared memory one block of the int8 kernel requests: the
-    8x8 tile's int8 input patch with its halo, plus the (u_out, u_in) int8
-    weight slice with one padding word per row.  Equal to
-    ``conv_mapmajor_int8_smem_bytes`` in the CUDA source (chip_smoke.py
-    checks the two agree)."""
-    ph = (INT8_TILE_H - 1) * stride + kh
-    pw = (INT8_TILE_W - 1) * stride + kw
-    return ph * pw * u + u_out * (u + 4)
+    """The dynamic shared memory one block of the int8 kernel requests: two
+    int8 input patches of an 8x8 output tile with its halo plus
+    ``weight_stages(kh, kw)`` weight slices of ``weight_rows(u_out)`` lanes,
+    every row ``int8_row_pitch(u)`` bytes; where that is over the H100's
+    232,448 B per block (the lean staging), one patch of a 4x8 tile and two
+    slices.  Equal to ``conv_mapmajor_int8_smem_bytes`` in the CUDA source
+    (chip_smoke.py checks the two agree)."""
+    return _int8_staging(kh, kw, stride, u, u_out)[1]
+
+
+def int8_split(blocks: int, n_steps: int, smem: int) -> int:
+    """Blocks a cluster of the int8 kernel for a grid of ``blocks`` unsplit
+    blocks walking ``n_steps`` (gi, kh, kw) steps each (``split_of`` in the
+    source)."""
+    ks = min(-(-INT8_SMS // blocks), INT8_MAX_SPLIT, n_steps // INT8_MIN_STEPS)
+    if blocks > INT8_SPLIT_MAX_BLOCKS or ks < 2 or smem < INT8_PARTIAL_BYTES:
+        return 1
+    split_steps = -(-n_steps // ks)
+    return -(-n_steps // split_steps)
+
+
+def kernel_grid_blocks_int8(n: int, n_gi: int, n_go: int, u_out: int, ho: int,
+                            wo: int, kh: int, kw: int, stride: int,
+                            u: int) -> int:
+    """Blocks in one launch of the int8 kernel: output tiles (8x8, or 4x8
+    under the lean staging) x Go x 64-lane slices of u_out x N, times the
+    blocks a cluster (equal to ``conv_mapmajor_int8_grid_blocks`` in the
+    source)."""
+    tile_h, smem = _int8_staging(kh, kw, stride, u, u_out)
+    blocks = (-(-ho // tile_h) * -(-wo // INT8_TILE_W) * n_go
+              * -(-u_out // BLOCK_N) * n)
+    return blocks * int8_split(blocks, n_gi * kh * kw, smem)
 
 
 def _check_shapes(x_mm, w_mm, b_mm, stride, out_hw):
@@ -236,7 +295,7 @@ def conv_mapmajor_int8(x_mm: torch.Tensor, w_mm: torch.Tensor,
     Kw, u) int8; s_mm (Go, u_out) f32, the activation scale times each output
     channel's weight scale; b_mm (Go, u_out) f32 or None.  Returns
     (N, Go, Ho, Wo, u_out) in ``out_dtype`` (bf16 or f32).  ``u`` must be a
-    multiple of 4: four input channels form one 32-bit word of the kernel.
+    multiple of 4: the kernel stages rows in copies of 4 or 16 bytes.
     """
     if x_mm.dtype != torch.int8 or w_mm.dtype != torch.int8:
         raise ValueError(f"int8 operands expected, got {x_mm.dtype} and "
@@ -300,3 +359,11 @@ def cuda_smem_bytes_int8(kh: int, kw: int, stride: int, u: int,
     """The int8 source's own count of the shared memory a block requests."""
     lib = _build.load("conv_mapmajor_int8")
     return int(lib.conv_mapmajor_int8_smem_bytes(kh, kw, stride, u, u_out))
+
+
+def cuda_grid_blocks_int8(n: int, n_gi: int, n_go: int, u_out: int, ho: int,
+                          wo: int, kh: int, kw: int, stride: int, u: int) -> int:
+    """Blocks in one launch of the int8 kernel, by the source's count."""
+    lib = _build.load("conv_mapmajor_int8")
+    return int(lib.conv_mapmajor_int8_grid_blocks(n, n_gi, n_go, u_out, ho, wo,
+                                                  kh, kw, stride, u))

@@ -11,7 +11,11 @@ Two kernels, each replacing a Pallas TPU kernel of
   wrapper allocates, and a second reduces the chunks in order and flushes.
 - ``matmul_mapmajor_int8`` (int8 x int8 -> int32, flush
   ``float(acc) * s + bias`` in f32, ReLU, cast, as the TPU kernel does;
-  ``kernels/csrc/matmul_mapmajor_int8.cu``).
+  ``kernels/csrc/matmul_mapmajor_int8.cu``).  It splits K into chunks of
+  its own choosing (:func:`int8_k_chunk`; int32 sums are exact, so the
+  split changes no bit): one launch writes each chunk's int32 partial into
+  a workspace of shape (splits, M, N), which the wrapper allocates, and a
+  second sums the splits and flushes.
 
 Each source's header says how it is tiled, what bounds it on an H100 and
 what its design does about that.  Each wrapper launches its kernel for CUDA
@@ -33,6 +37,13 @@ from .. import _build
 #: against ``matmul_mapmajor_block_k`` and ``matmul_mapmajor_int8_block_k``
 #: by chip_smoke.py); the float kernel's ``bk`` must be a multiple of it.
 BLOCK_K = 64
+#: The int8 kernel's block tile (BM x BN in matmul_mapmajor_int8.cu) and the
+#: grid it sizes its K chunks for (kTargetBlocks: about 4 per SM of an
+#: H100's 132); :func:`int8_k_chunk` restates its chunk rule and
+#: chip_smoke.py checks the block counts against the source's.
+INT8_BLOCK_M = 16
+INT8_BLOCK_N = 64
+INT8_TARGET_BLOCKS = 4 * 132
 
 
 def _round_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -112,6 +123,33 @@ def cuda_grid_blocks(m: int, n: int, k: int, bk: int) -> int:
     return int(lib.matmul_mapmajor_grid_blocks(m, n, k, bk))
 
 
+def int8_k_chunk(m: int, n: int, k: int) -> int:
+    """The int8 kernel's K chunk: a multiple of ``BLOCK_K``, the shortest
+    that keeps the grid at about ``INT8_TARGET_BLOCKS`` blocks (all of K
+    where the output tiles alone reach it)."""
+    tiles = -(-n // INT8_BLOCK_N) * -(-m // INT8_BLOCK_M)
+    want = -(-INT8_TARGET_BLOCKS // tiles)
+    steps = -(-k // BLOCK_K)
+    return -(-steps // want) * BLOCK_K
+
+
+def int8_splits(m: int, n: int, k: int) -> int:
+    """K chunks of one int8 call: the workspace's leading dimension."""
+    return -(-k // int8_k_chunk(m, n, k))
+
+
+def int8_grid_blocks(m: int, n: int, k: int) -> int:
+    """Blocks of the int8 kernel's split launch: 64-column slices x K splits
+    x 16-row tiles (``matmul_mapmajor_int8_grid_blocks`` in the source)."""
+    return -(-n // INT8_BLOCK_N) * int8_splits(m, n, k) * -(-m // INT8_BLOCK_M)
+
+
+def cuda_grid_blocks_int8(m: int, n: int, k: int) -> int:
+    """Blocks of the int8 kernel's split launch, by the source's count."""
+    lib = _build.load("matmul_mapmajor_int8")
+    return int(lib.matmul_mapmajor_int8_grid_blocks(m, n, k))
+
+
 def matmul_mapmajor_int8_plain(a: torch.Tensor, b: torch.Tensor,
                                s: torch.Tensor,
                                bias: Optional[torch.Tensor] = None, *,
@@ -133,7 +171,9 @@ def matmul_mapmajor_int8(a: torch.Tensor, b: torch.Tensor, s: torch.Tensor,
                          ) -> torch.Tensor:
     """(M, K) int8 @ (K, N) int8 with the flush ``float(acc) * s + bias``
     (s and bias (N,) f32, bias optional), optional ReLU; returns ``out_dtype``
-    (bf16 or f32).  No dimension is padded."""
+    (bf16 or f32).  No dimension is padded.  On the card: two CUDA launches
+    (split over K into an int32 workspace, then the sum and flush), counted
+    as one in ``launches``."""
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise ValueError(f"int8 operands expected, got {a.dtype} and {b.dtype}")
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
@@ -159,12 +199,14 @@ def matmul_mapmajor_int8(a: torch.Tensor, b: torch.Tensor, s: torch.Tensor,
     bias_c = (bias.to(device=dev, dtype=torch.float32).contiguous()
               if bias is not None else None)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    splits = int8_splits(m, n, k)
+    ws = torch.empty((splits, m, n), dtype=torch.int32, device=dev)
     lib = _build.load("matmul_mapmajor_int8")
     err = lib.matmul_mapmajor_int8_launch(
         a_c.data_ptr(), b_c.data_ptr(), s_c.data_ptr(),
         bias_c.data_ptr() if bias_c is not None else None, out.data_ptr(),
-        m, n, k, int(apply_relu), int(out_dtype == torch.float32),
-        _build.stream_of(a_c))
+        ws.data_ptr(), m, n, k, splits, int(apply_relu),
+        int(out_dtype == torch.float32), _build.stream_of(a_c))
     _build.check_launch("matmul_mapmajor_int8", err)
     matmul_mapmajor_int8.launches += 1
     return out

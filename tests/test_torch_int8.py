@@ -36,6 +36,9 @@ from repro.kernels.conv_mapmajor.conv_mapmajor import \
     conv_mapmajor_int8 as jax_conv_mapmajor_int8
 from repro.kernels.conv_mapmajor.ops import \
     conv2d_mapmajor_int8 as jax_conv2d_mapmajor_int8
+from repro.kernels.conv_mapmajor.ops import fits_vmem as jax_fits_vmem
+from repro.kernels.conv_mapmajor.ops import \
+    input_block_vmem_bytes as jax_input_block_vmem_bytes
 from repro.kernels.matmul_mapmajor.matmul_mapmajor import \
     matmul_mapmajor_int8 as jax_matmul_mapmajor_int8
 from repro.kernels.matmul_mapmajor.ops import matmul_int8 as jax_matmul_int8
@@ -48,6 +51,7 @@ from repro_torch.core import (IMPL_KERNEL, IMPL_XLA, ComputeMode,
                               plan_network, prepare_weight,
                               quantize_act_int8, quantize_int8, resolve_weight,
                               synthesize, weight_channel_axis)
+from repro_torch.core.precision import int8_flush
 from repro_torch.core.synthesizer import (_attach_qparams,
                                           calibrate_activation_qparams)
 from repro_torch.device import H100
@@ -57,7 +61,8 @@ from repro_torch.kernels.conv_mapmajor.conv_mapmajor import (
 from repro_torch.kernels.conv_mapmajor.ops import (conv2d_mapmajor_int8,
                                                    fits_vmem)
 from repro_torch.kernels.matmul_mapmajor.matmul_mapmajor import (
-    matmul_mapmajor_int8, matmul_mapmajor_int8_plain)
+    BLOCK_K, int8_grid_blocks, int8_k_chunk, int8_splits, matmul_mapmajor_int8,
+    matmul_mapmajor_int8_plain)
 from repro_torch.kernels.matmul_mapmajor.ops import matmul_int8
 
 from _torch_parity import (as_np, assert_close, jax_mode, params_to_jax,
@@ -293,19 +298,24 @@ def test_conv2d_mapmajor_int8_matches_reference(cin, cout, hw, k, stride,
 
 @pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
 def test_over_envelope_int8_conv_takes_the_fake_quantized_library_path(fuse):
-    """Under a budget below the int8 kernel's request (and below the JAX
-    package's whole-plane envelope) both packages run the library conv on
-    fake-quantized activations and dequantized weights: within 1 bf16 ulp."""
+    """Under a budget below the int8 kernel's request and below the JAX
+    package's whole-plane envelope (the 24x24 padded plane at 2 bytes),
+    both packages run the library conv on fake-quantized activations and
+    dequantized weights: within 1 bf16 ulp."""
     x, q, scale, b, act_scale = _conv_problem(3, 8, 20, 5, seed=4)
     need = kernel_smem_bytes_int8(5, 5, 1, 8, 8)
     assert not fits_vmem(5, 1, 8, INT8, budget=need - 1)
     assert fits_vmem(5, 1, 8, INT8, budget=need)
+    budget = min(need, jax_input_block_vmem_bytes(24, 24, 8, jp.ComputeMode.IMPRECISE_INT8)) - 1
+    assert not fits_vmem(5, 1, 8, INT8, budget=budget)
+    assert not jax_fits_vmem(20, 20, 5, 1, "SAME", 8, jp.ComputeMode.IMPRECISE_INT8,
+                             budget=budget)
     got = conv2d_mapmajor_int8(to_torch(x), torch_qt(q, scale), QParams(act_scale),
-                               to_torch(b), u=8, vmem_budget=need - 1,
+                               to_torch(b), u=8, vmem_budget=budget,
                                fuse_bias_relu=fuse)
     want = jax_conv2d_mapmajor_int8(to_jax(x), jax_qt(q, scale),
                                     jp.QParams(act_scale), to_jax(b), u=8,
-                                    interpret=True, vmem_budget=need - 1,
+                                    interpret=True, vmem_budget=budget,
                                     fuse_bias_relu=fuse)
     assert_within_one_bf16_ulp(got, want)
 
@@ -331,6 +341,39 @@ def test_plain_int8_matmul_matches_reference_kernel(m, k, n, bias, relu):
                                        out_dtype=torch.float32)
     np.testing.assert_array_equal(exact.numpy().astype(np.int64),
                                   a.astype(np.int64) @ w.astype(np.int64))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 9216, 4096), (8, 4096, 1000),
+                                   (7, 333, 70), (17, 1000, 5)])
+def test_int8_matmul_split_cannot_change_the_plain_result(m, k, n):
+    """The int8 kernel splits K into chunks it picks from the shapes; int32
+    sums are exact, so the partials over its chunks, over 64-deep chunks and
+    over no split at all add up to the same int32, and the flushed result is
+    the plain version's."""
+    rng = np.random.default_rng(13)
+    a = to_torch(rng.integers(-127, 128, (m, k), dtype=np.int8))
+    w = to_torch(rng.integers(-127, 128, (k, n), dtype=np.int8))
+    s = to_torch((rng.random(n) * 1e-4).astype(np.float32))
+    b = to_torch(rng.standard_normal(n).astype(np.float32))
+    chunk = int8_k_chunk(m, n, k)
+    assert chunk % BLOCK_K == 0 and int8_splits(m, n, k) == -(-k // chunk)
+    whole = (a.double() @ w.double()).to(torch.int32)
+    for c in (chunk, BLOCK_K, k):
+        parts = torch.stack([(a[:, k0:k0 + c].double() @ w[k0:k0 + c].double())
+                             .to(torch.int32) for k0 in range(0, k, c)])
+        acc = parts.sum(0, dtype=torch.int32)
+        assert torch.equal(acc, whole), c
+        assert torch.equal(int8_flush(acc, s, b, True, torch.bfloat16),
+                           matmul_mapmajor_int8_plain(a, w, s, b, apply_relu=True))
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_int8_matmul_grid_fills_the_card_on_alexnet(batch):
+    """fc6-fc8 at batch 1 and 8: at least two blocks per SM of an H100
+    (132 SMs), fc8's 1000 columns included (one block per 64-column tile
+    would give 16)."""
+    for k, n in ((9216, 4096), (4096, 4096), (4096, 1000)):
+        assert int8_grid_blocks(batch, n, k) >= 2 * 132, (k, n)
 
 
 def _dense_problem(m, k, n, seed=6):
@@ -506,9 +549,11 @@ def test_int8_rule1_difference_on_full_width_alexnet_is_conv2():
     """Full width at batch 8: the JAX package's envelope counts conv2's whole
     31x31 padded plane at 2 bytes (246,016 B > 232,448 B) and keeps conv2 on
     the library path; the port counts the int8 kernel's own request
-    (35,328 B) and routes it to the kernel.  conv1 stays on the library
-    path in both, for different rules (the JAX whole plane; here 3 input
-    channels, rule 3 'narrow').  Every other layer agrees."""
+    (69,120 B: two patches and three weight slices, rows of 144 B) and
+    routes it to the kernel.  conv1 stays on the library path in both, for
+    different rules (the JAX whole plane; here 3 input channels, rule 3
+    'narrow': its lean int8 request, 147,600 B, fits).  Every other layer
+    agrees."""
     ours, ref = _int8_plans({}, 8)
     differ = []
     for name, lp in ref:
@@ -519,10 +564,10 @@ def test_int8_rule1_difference_on_full_width_alexnet_is_conv2():
     assert differ == ["conv2"]
     assert ref.for_layer("conv2").reason.startswith("rule1")
     assert ours.for_layer("conv2").impl == IMPL_KERNEL
-    assert kernel_smem_bytes_int8(5, 5, 1, 128, 128) == 35_328
+    assert kernel_smem_bytes_int8(5, 5, 1, 128, 128) == 69_120
     assert ref.for_layer("conv1").reason.startswith("rule1")
     assert ours.for_layer("conv1").reason.startswith("rule3: narrow")
-    assert kernel_smem_bytes_int8(11, 11, 4, 128, 128) == 211_584 <= 232_448
+    assert kernel_smem_bytes_int8(11, 11, 4, 128, 128) == 147_600 <= 232_448
 
 
 # -------------------------------------------------------------- synthesis --

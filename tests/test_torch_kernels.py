@@ -24,13 +24,16 @@ from repro_torch.core import (IMPL_KERNEL, PlannerConfig, lower_network,
                               plan_network)
 from repro_torch.kernels.conv_mapmajor.conv_mapmajor import (
     MAX_U, conv_mapmajor, conv_mapmajor_int8, conv_mapmajor_int8_plain,
-    conv_mapmajor_plain, cuda_smem_bytes, cuda_smem_bytes_int8,
-    kernel_smem_bytes, kernel_smem_bytes_int8)
+    conv_mapmajor_plain, cuda_grid_blocks_int8, cuda_smem_bytes,
+    cuda_smem_bytes_int8, kernel_grid_blocks_int8, kernel_smem_bytes,
+    kernel_smem_bytes_int8)
 from repro_torch.kernels.conv_mapmajor.ops import conv2d_mapmajor, fits_vmem
 from repro_torch.kernels.conv_mapmajor.ref import conv_mapmajor_ref, pack_weights
 from repro_torch.kernels.matmul_mapmajor.matmul_mapmajor import (
-    BLOCK_K, matmul_mapmajor, matmul_mapmajor_int8, matmul_mapmajor_int8_plain,
-    matmul_mapmajor_plain)
+    BLOCK_K, int8_grid_blocks, matmul_mapmajor, matmul_mapmajor_int8,
+    matmul_mapmajor_int8_plain, matmul_mapmajor_plain)
+from repro_torch.kernels.matmul_mapmajor.matmul_mapmajor import \
+    cuda_grid_blocks_int8 as cuda_mm_grid_blocks_int8
 from repro_torch.kernels.matmul_mapmajor.ops import block_k, matmul
 from repro_torch.kernels.matmul_mapmajor.ref import matmul_ref
 
@@ -208,6 +211,92 @@ def test_kernel_envelope_covers_the_one_slice_envelope(mode):
                                                  mode) <= 232_448
 
 
+# (layer, k, stride, bytes) of the int8 kernel at u = 128: two patches of an
+# 8x8 output tile and three 64-lane weight slices, every row 128 + 16
+# bytes; conv1's 465,696 B are over the 232,448 B budget, so it takes the
+# lean staging (one patch of a 4x8 tile, two slices).
+ALEXNET_SMEM_INT8 = [("conv1", 11, 4, 147_600), ("conv2", 5, 1, 69_120),
+                     ("conv3", 3, 1, 56_448), ("conv4", 3, 1, 56_448),
+                     ("conv5", 3, 1, 56_448)]
+
+
+@pytest.mark.parametrize("layer,k,stride,nbytes", ALEXNET_SMEM_INT8,
+                         ids=[c[0] for c in ALEXNET_SMEM_INT8])
+def test_int8_kernel_smem_bytes_at_alexnet_shapes(layer, k, stride, nbytes):
+    """The int8 kernel's request at u = 128 (rule 1 under IMPRECISE_INT8):
+    every AlexNet conv fits, conv1 through the lean staging."""
+    assert kernel_smem_bytes_int8(k, k, stride, 128, 128) == nbytes <= 232_448
+    full_conv1 = 2 * 39 * 39 * 144 + 3 * 64 * 144
+    assert (layer == "conv1") == (full_conv1 == 465_696 and nbytes < full_conv1
+                                  and stride == 4)
+
+
+# Blocks of the int8 conv at full-width AlexNet's conv2-conv5 (u = 128), per
+# batch: (layer, Gi, Go, hw, k, blocks).  Only conv3-conv5 at batch 1 (16-24
+# tiles x slices, at most a quarter of the 132 SMs) split their (gi, kh, kw)
+# walk over a cluster: 4, 6 and 6 blocks for 18, 27 and 27 steps.
+ALEXNET_INT8_BLOCKS = {
+    1: [("conv2", 1, 2, 27, 5, 64), ("conv3", 2, 3, 13, 3, 96),
+        ("conv4", 3, 3, 13, 3, 144), ("conv5", 3, 2, 13, 3, 96)],
+    8: [("conv2", 1, 2, 27, 5, 512), ("conv3", 2, 3, 13, 3, 192),
+        ("conv4", 3, 3, 13, 3, 192), ("conv5", 3, 2, 13, 3, 128)]}
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_int8_conv_splits_only_grids_that_leave_the_card_idle(batch):
+    for layer, gi, go, hw, k, blocks in ALEXNET_INT8_BLOCKS[batch]:
+        assert kernel_grid_blocks_int8(batch, gi, go, 128, hw, hw, k, k, 1,
+                                       128) == blocks, layer
+
+
+def test_int8_conv_split_cannot_change_the_plain_result():
+    """A cluster's blocks walk contiguous ranges of the (gi, kh, kw) steps
+    and rank 0 adds their int32 partials: any such split of the steps sums
+    to the plain version's accumulator."""
+    rng = np.random.default_rng(17)
+    n, gi, go, u, ho, k = 1, 3, 1, 8, 5, 3
+    x = rng.integers(-127, 128, (n, gi, ho + k - 1, ho + k - 1, u)).astype(np.int64)
+    w = rng.integers(-127, 128, (go, u, gi, k, k, u)).astype(np.int64)
+    steps = [(g, dh, dw) for g in range(gi) for dh in range(k) for dw in range(k)]
+
+    def partial(ts):
+        acc = np.zeros((n, go, ho, ho, u), np.int64)
+        for g, dh, dw in ts:
+            acc += np.einsum("nhwc,odc->nohwd", x[:, g, dh:dh + ho, dw:dw + ho],
+                             w[:, :, g, dh, dw])
+        return acc
+
+    whole = partial(steps)
+    s = np.ones((go, u), np.float32)
+    plain = conv_mapmajor_int8_plain(to_torch(x.astype(np.int8)),
+                                     to_torch(w.astype(np.int8)), to_torch(s),
+                                     out_hw=(ho, ho), out_dtype=torch.float32)
+    np.testing.assert_array_equal(plain.numpy().astype(np.int64), whole)
+    for split_steps in (1, 4, 5, 13, 27):
+        parts = [partial(steps[b:b + split_steps])
+                 for b in range(0, len(steps), split_steps)]
+        np.testing.assert_array_equal(sum(parts), whole)
+
+
+def _dp4a_smem_bytes(k, stride, u, u_out):
+    """The envelope of the earlier __dp4a int8 kernel: one 8x8 tile's unpadded
+    int8 patch plus one (u_out, u + 4) weight slice."""
+    return (7 * stride + k) ** 2 * u + u_out * (u + 4)
+
+
+def test_int8_kernel_envelope_covers_the_dp4a_envelope():
+    """The int8 wrapper refuses no shape that the __dp4a kernel took: for
+    every k <= 11, stride <= 4, u a multiple of 4 up to 128 and u_out, where
+    that request fits the 232,448 B block budget, this kernel's does too."""
+    for k in range(1, 12):
+        for stride in range(1, 5):
+            for u in range(4, 129, 4):
+                for u_out in (1, 7, 29, 32, 33, 64, 100, 128, u):
+                    if _dp4a_smem_bytes(k, stride, u, u_out) <= 232_448:
+                        assert kernel_smem_bytes_int8(k, k, stride, u,
+                                                      u_out) <= 232_448
+
+
 @pytest.mark.parametrize("batch", [1, 8])
 @pytest.mark.parametrize("mode", [ComputeMode.RELAXED, ComputeMode.IMPRECISE],
                          ids=lambda m: m.value)
@@ -357,15 +446,114 @@ def test_matmul_int8_kernel_equals_plain_on_card(cuda, m, k, n, bias, relu):
 
 @pytest.mark.gpu
 def test_int8_sources_agree_with_python_constants(cuda):
-    """The smem count rule 1 reads under IMPRECISE_INT8, MAX_U and BLOCK_K
-    equal the CUDA sources' own."""
-    for k, stride in [(11, 4), (5, 1), (3, 1), (1, 1)]:
-        for u in (8, 64, 128):
-            assert kernel_smem_bytes_int8(k, k, stride, u, u) == \
-                cuda_smem_bytes_int8(k, k, stride, u, u)
+    """The smem count rule 1 reads under IMPRECISE_INT8 (full and lean
+    staging, 64- and 32-lane slices), the block counts of both int8 kernels
+    (the matmul's fix its K splits, which size the workspace), MAX_U and
+    BLOCK_K equal the CUDA sources' own."""
+    for k, stride in [(11, 4), (5, 1), (3, 1), (1, 1), (7, 2), (5, 4)]:
+        for u, u_out in [(4, 4), (8, 8), (12, 7), (36, 33), (64, 64),
+                         (100, 100), (128, 128), (128, 16)]:
+            assert kernel_smem_bytes_int8(k, k, stride, u, u_out) == \
+                cuda_smem_bytes_int8(k, k, stride, u, u_out)
+            for n, gi, ho in [(1, 3, 13), (8, 1, 27), (3, 2, 5)]:
+                args = (n, gi, 3, u_out, ho, ho + 2, k, k, stride, u)
+                assert kernel_grid_blocks_int8(*args) == cuda_grid_blocks_int8(*args)
+    for m in (1, 7, 8, 17, 33):
+        for k, n in [(9216, 4096), (4096, 4096), (4096, 1000), (333, 7), (1030, 1)]:
+            assert int8_grid_blocks(m, n, k) == cuda_mm_grid_blocks_int8(m, n, k)
     assert _build.load("conv_mapmajor_int8").conv_mapmajor_int8_max_u() == MAX_U
     assert _build.load("matmul_mapmajor_int8").matmul_mapmajor_int8_block_k() \
         == BLOCK_K
+
+
+# n, gi, go, u, u_out, ho, wo, k, stride: u in {4, 12, 36, 100, 128} (16- and
+# 4-byte copies), u_out in {1, 7, 33, 64, 100, 128} (32- and 64-lane slices,
+# a ragged last slice), outputs that are not multiples of the 8x8 tile,
+# k 1-11, strides 1-4, and the lean staging (11x11/4 at u = 100, 5x5/4 at
+# u = 128).
+RAGGED_INT8_CONV_CASES = [
+    (1, 1, 1, 4, 1, 5, 9, 3, 1), (2, 2, 1, 12, 7, 7, 3, 3, 2),
+    (1, 3, 2, 36, 33, 6, 11, 5, 1), (1, 1, 1, 100, 100, 3, 5, 11, 4),
+    (2, 2, 3, 128, 64, 13, 13, 3, 1), (1, 1, 2, 128, 128, 27, 27, 5, 1),
+    (1, 2, 1, 128, 128, 5, 6, 5, 4), (3, 1, 1, 4, 33, 4, 17, 1, 1),
+    (1, 2, 1, 12, 100, 9, 10, 7, 2), (2, 1, 1, 36, 7, 10, 9, 11, 3),
+    (1, 1, 2, 100, 128, 12, 7, 9, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("n,gi,go,u,u_out,ho,wo,k,stride", RAGGED_INT8_CONV_CASES)
+def test_conv_int8_kernel_ragged_shapes_on_card(cuda, n, gi, go, u, u_out, ho,
+                                                wo, k, stride, out_dtype):
+    rng = np.random.default_rng(14)
+    hp, wp = (ho - 1) * stride + k, (wo - 1) * stride + k + 1
+    x = to_torch(rng.integers(-127, 128, (n, gi, hp, wp, u), dtype=np.int8))
+    w = to_torch(rng.integers(-127, 128, (go, u_out, gi, k, k, u), dtype=np.int8))
+    s = to_torch((rng.random((go, u_out)) * 1e-3).astype(np.float32))
+    b = to_torch(rng.standard_normal((go, u_out)).astype(np.float32))
+    got = conv_mapmajor_int8(x.to(cuda), w.to(cuda), s.to(cuda), b.to(cuda),
+                             stride=stride, out_hw=(ho, wo), apply_relu=True,
+                             out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    want = conv_mapmajor_int8_plain(x, w, s, b, stride=stride, out_hw=(ho, wo),
+                                    apply_relu=True, out_dtype=out_dtype)
+    assert torch.equal(got.cpu(), want)
+
+
+def _offset_view(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """``t``'s values in a contiguous tensor whose data starts ``offset``
+    bytes past an aligned allocation."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# M in {1, 7, 8, 17, 33}; K not a multiple of 32 (1000, 4100: 8-byte rows of
+# A) or of 16 (333, 777, 1030); N in {1, 7, 1000} (1000: 8-byte copies of
+# B); A or B starting one byte past an aligned address (plain loads).
+RAGGED_INT8_MM_CASES = [  # m, k, n, offset of A, offset of B
+    (1, 1000, 1000, 0, 0), (7, 333, 7, 0, 0), (8, 4100, 1000, 0, 0),
+    (17, 1030, 1, 0, 0), (33, 777, 1000, 0, 0), (8, 4096, 1000, 1, 0),
+    (8, 4096, 1000, 0, 1), (7, 1000, 7, 1, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,off_a,off_b", RAGGED_INT8_MM_CASES)
+def test_matmul_int8_kernel_ragged_shapes_on_card(cuda, m, k, n, off_a, off_b):
+    rng = np.random.default_rng(15)
+    a = to_torch(rng.integers(-127, 128, (m, k), dtype=np.int8))
+    w = to_torch(rng.integers(-127, 128, (k, n), dtype=np.int8))
+    s = to_torch((rng.random(n) * 1e-4).astype(np.float32))
+    b = to_torch(rng.standard_normal(n).astype(np.float32))
+    a_c, w_c = _offset_view(a.to(cuda), off_a), _offset_view(w.to(cuda), off_b)
+    assert (a_c.data_ptr() % 16, w_c.data_ptr() % 16) == (off_a, off_b)
+    got = matmul_mapmajor_int8(a_c, w_c, s.to(cuda), b.to(cuda), apply_relu=True)
+    torch.cuda.synchronize()
+    want = matmul_mapmajor_int8_plain(a, w, s, b, apply_relu=True)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_int8_kernels_are_deterministic_on_card(cuda):
+    """Exact int32 sums and a split reduced without atomics: two runs of
+    each int8 kernel at AlexNet's conv2 and fc6 shapes are bit-equal, and
+    each layer call counts one launch."""
+    rng = np.random.default_rng(16)
+    x = to_torch(rng.integers(-127, 128, (8, 1, 31, 31, 128), dtype=np.int8)).to(cuda)
+    w = to_torch(rng.integers(-127, 128, (2, 128, 1, 5, 5, 128), dtype=np.int8)).to(cuda)
+    s = torch.full((2, 128), 1e-4, device=cuda)
+    a = to_torch(rng.integers(-127, 128, (8, 9216), dtype=np.int8)).to(cuda)
+    wm = to_torch(rng.integers(-127, 128, (9216, 4096), dtype=np.int8)).to(cuda)
+    sm = torch.full((4096,), 1e-5, device=cuda)
+    before = (conv_mapmajor_int8.launches, matmul_mapmajor_int8.launches)
+    c1, c2 = (conv_mapmajor_int8(x, w, s, out_hw=(27, 27)) for _ in range(2))
+    m1, m2 = (matmul_mapmajor_int8(a, wm, sm) for _ in range(2))
+    torch.cuda.synchronize()
+    assert (conv_mapmajor_int8.launches, matmul_mapmajor_int8.launches) == \
+        (before[0] + 2, before[1] + 2)
+    assert torch.equal(c1, c2) and torch.equal(m1, m2)
 
 
 # n, gi, go, u, u_out, ho, wo, k, stride: u in {4, 8, 16, 128}, u_out < u,
