@@ -14,23 +14,30 @@ Phases; each raises on failure, so a failing phase never exits 0:
    float kernels in RELAXED, IMPRECISE and PRECISE, TF32 off; the int8
    kernels bit for bit, bias and ReLU each on and off;
 3. the RELAXED main path: full-width AlexNet (random weights from a seed)
-   through ``synthesize(device="h100", PlannerConfig(batch=8))`` and
-   ``for_batch(1)`` / ``for_batch(8)``, 4 batches each; the launch counters
-   must show one float conv launch per kernel-routed conv group, three
-   matmul launches per batch and no int8 launch; the logits must match the
-   same program run on CPU copies of the weights (the plain versions)
+   through ``synthesize(device="h100", PlannerConfig(batch=8))`` (with a
+   tracer and a metrics registry) and ``for_batch(1)`` / ``for_batch(8)``,
+   each one CUDA graph (a warm-up pass, then the capture), 4 replayed
+   batches each in one ``torch.profiler`` window; the wrappers' launch
+   counters (which count the warm-ups and the captures; a replay calls no
+   wrapper) and the kernels' launches on the card in the replays (counted
+   by ``__global__`` name in the window) must each show one float conv
+   launch per kernel-routed conv group, three matmul calls (each a split
+   and a reduce launch) per pass and no int8 launch; the logits must match
+   the same program run on CPU copies of the weights (the plain versions)
    within 2 bf16 ulps, and the probabilities within what those logits
    allow; then one ``synthesize`` with a 16-image validation set and its
    gate record;
 4. the int8 main path: the same network through ``synthesize(...,
    forced_mode=IMPRECISE_INT8)`` with the 16 images as calibration set,
-   then ``for_batch(1)`` / ``for_batch(8)``, 4 batches each; every
-   kernel-routed int8 layer must carry calibrated qparams, the int8 kernels
-   must launch once per routed group and pass (the float ones never), and
-   the logits must match the same program run on CPU copies of its
-   prepared weights within mode_tolerance(IMPRECISE_INT8) of the row's
-   largest |logit|; then one ``synthesize(..., allow_int8=True,
-   max_degradation=0.05)`` through the loop and the gate;
+   then ``for_batch(1)`` / ``for_batch(8)`` (CUDA graphs), 4 replayed
+   batches each; every kernel-routed int8 layer must carry calibrated
+   qparams, the int8 kernels must launch once per routed group and pass
+   (the float ones never), counted as in phase 3, and the logits must match
+   the same program run
+   on CPU copies of its prepared weights within
+   mode_tolerance(IMPRECISE_INT8) of the row's largest |logit|; then one
+   ``synthesize(..., allow_int8=True, max_degradation=0.05)`` through the
+   loop and the gate;
 5. times: each kernel and one library call for the same function where
    PyTorch has one, as device time (calls captured in a CUDA graph, the
    weights cycled through copies so they are cold in L2), with the
@@ -39,10 +46,33 @@ Phases; each raises on failure, so a failing phase never exits 0:
    bytes and operations; the float kernels under RELAXED and IMPRECISE
    (what Stage C ships); every kernel's blocks per launch; for the int8
    conv, whether one PyTorch call computes an int8 convolution on the card
-   (what was tried and why it failed, where none does); end to end (CUDA
-   events) at batch 1 and 8 for the RELAXED and the int8 program;
-6. one ``torch.profiler`` window of three batch-8 requests per program:
-   device time by kernel and the device's busy share of the host-clock time.
+   (what was tried and why it failed, where none does); end to end at
+   batch 1 and 8 for the RELAXED and the int8 program, the eager walk
+   (``infer``) against the replayed CUDA graph (``BatchProgram``), in
+   turns, each between CUDA events and on the host clock to a
+   synchronize; a replay must equal the eager walk bit for bit;
+6. one ``torch.profiler`` window of three replayed batch-8 requests per
+   program: device time by kernel (the program's kernels must be among
+   them) and the device's busy share of the host-clock time;
+7. the serving tier: phase 3's and phase 4's programs (not synthesized
+   again) through ``run_offered_load`` on a ``ReplicaSet`` with
+   ``ServingConfig(max_batch=8, max_delay_s=0.002)``, 1 and then 2
+   replicas on the card sharing one ``ProgramCache`` per program (its 4
+   buckets built first), three runs each: (a) 128 requests back to back
+   in a profiler window, where no request may fail, admitted + shed must
+   equal the requests, every response must equal its bucket's
+   ``BatchProgram`` on the same (zero-padded) image batch bit for bit, no
+   wrapper may run, and each kernel must launch on the card once per
+   routed layer in every replay (the warm-ups' and the dispatched
+   buckets'); (b) 4096 requests back to back with the admission bound
+   above that, so none is shed: the tier's capacity in img/s; (c) 2048
+   requests offered open loop at half that capacity under the default
+   bound (64 per replica): p50, p95 and p99 latency, img/s and the shed
+   share.  At most 4 Stage-D builds per program, ``serving_*`` series in
+   the snapshot and ``serve.dispatch`` and ``synthesis.*`` spans in the
+   trace; prints the graph memory per bucket; then
+   ``python3 -m repro_torch.launch.serve_cnn`` on full-width AlexNet in a
+   child process, which must exit 0.
 
 With ``--baseline TREE`` (an older checkout of this repository that has
 the int8 datapath, e.g. unpacked from ``git archive`` under ``build/``),
@@ -60,12 +90,15 @@ without the repository beside it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 SEED = 0
 H100_BF16_FLOPS = 989e12      # dense tensor-core peak (data sheet, 700 W)
@@ -111,22 +144,44 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warmup``."""
+def cuda_ms(fn, reps: int = 20, warmup: int = 3):
+    """Medians of ``reps`` timings of ``fn`` after ``warmup``: between CUDA
+    events, and on the host clock from the call to the end event's
+    synchronize.  Returns ``(event_ms, host_ms)``."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    ev, host = [], []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
         a.record()
         fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        host.append((time.perf_counter() - t0) * 1e3)
+        ev.append(a.elapsed_time(b))
+    return statistics.median(ev), statistics.median(host)
+
+
+def device_launches(fn, names):
+    """Launches on the card of each named ``__global__`` while ``fn`` runs,
+    counted by kernel name in one ``torch.profiler`` window (a graph replay
+    calls no wrapper, so only the card sees its launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(names, 0)
+    for ev in prof.key_averages():
+        if ev.device_type.name == "CUDA":
+            for n in names:
+                if n + "<" in ev.key or n + "(" in ev.key:
+                    counts[n] += ev.count
+    return counts
 
 
 def cold_copies(t, footprint: int = 2 * L2_BYTES):
@@ -339,6 +394,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.matmul_mapmajor.matmul_mapmajor import \
         cuda_grid_blocks_int8 as mm_grid_blocks_int8
     from repro_torch.kernels.matmul_mapmajor.ops import block_k
+    from repro_torch.obs import MetricsRegistry, Tracer
 
     counted = {"conv_mapmajor": conv_mapmajor, "matmul_mapmajor": matmul_mapmajor,
                "conv_mapmajor_int8": conv_mapmajor_int8,
@@ -536,7 +592,10 @@ def main(argv=None) -> int:
     net = alexnet()
     params = init_network_params(net, SEED, "cuda")
     cfg = PlannerConfig(batch=8)
-    prog = synthesize(net, params, device="h100", planner_config=cfg)
+    synth_registry = MetricsRegistry()
+    tracer = Tracer(clock=synth_registry.clock)
+    prog = synthesize(net, params, device="h100", planner_config=cfg,
+                      registry=synth_registry, tracer=tracer)
 
     def routed_groups(program):
         """Print the routing; count kernel-routed groups by anchor kind."""
@@ -556,33 +615,63 @@ def main(argv=None) -> int:
     check(conv_kernel_groups >= 1, "no conv group routed to the kernel")
 
     n_batches = 4
-    runs = 2 * (n_batches + 1)                      # served batches + warm-ups
+    builds = 2 * 2                   # for_batch(1), for_batch(8): warm-up + capture
+    replays = 2 * n_batches
     img_gen = torch.Generator().manual_seed(SEED + 1)
+    #: Each kernel's CUDA launches per layer call, by ``__global__`` name.
+    device_kernels = {"conv_mapmajor": ("conv_mapmajor_kernel",),
+                      "matmul_mapmajor": ("matmul_mapmajor_split",
+                                          "matmul_mapmajor_reduce"),
+                      "conv_mapmajor_int8": ("conv_mapmajor_int8_kernel",),
+                      "matmul_mapmajor_int8": ("matmul_mapmajor_int8_split",
+                                               "matmul_mapmajor_int8_reduce")}
+    all_globals = [g for gs in device_kernels.values() for g in gs]
 
-    def serve(program):
-        """for_batch(1) and for_batch(8), n_batches each, counts read around."""
-        served = {}
+    def check_device_launches(dev_counts, per_pass, passes, what):
+        """Each kernel's globals launched ``passes`` times per routed layer."""
+        for kern, globs in device_kernels.items():
+            for g in globs:
+                want = passes * per_pass.get(kern, 0)
+                check(dev_counts[g] == want,
+                      f"{what}: {g} launched {dev_counts[g]} times on the card, "
+                      f"{want} expected ({passes} passes)")
+
+    def serve(program, label):
+        """for_batch(1) and for_batch(8), each one CUDA graph, then n_batches
+        replays of each in one profiler window.  The wrappers count the
+        warm-ups and the captures; the replays' launches are counted on the
+        card by kernel name."""
         reset_counts()
-        for batch in (1, 8):
-            bp = program.for_batch(batch)
-            outs = []
-            for _ in range(n_batches):
-                x, _ = imagenet_like(img_gen, batch, hw=227, num_classes=1000,
-                                     device="cuda")
-                outs.append((x, bp(x)))
-            torch.cuda.synchronize()
-            served[batch] = outs
-        return served, read_counts()
+        bps = {batch: program.for_batch(batch) for batch in (1, 8)}
+        for batch, bp in bps.items():
+            check(bp.captured, f"for_batch({batch}) did not capture a CUDA graph")
+        inputs = {batch: [imagenet_like(img_gen, batch, hw=227, num_classes=1000,
+                                        device="cuda")[0] for _ in range(n_batches)]
+                  for batch in (1, 8)}
+        served = {}
 
-    served, launches = serve(prog)
-    print(f"launches on the RELAXED path ({runs} forward passes): {launches}")
-    check(launches["conv_mapmajor"] == runs * conv_kernel_groups,
-          f"conv launches {launches['conv_mapmajor']} != {runs} x {conv_kernel_groups}")
-    check(launches["matmul_mapmajor"] == runs * 3,
-          f"matmul launches {launches['matmul_mapmajor']} != {runs} x 3")
-    check(launches["conv_mapmajor_int8"] == launches["matmul_mapmajor_int8"] == 0,
-          "an int8 kernel launched on the RELAXED path")
+        def replay_all():
+            for batch in (1, 8):
+                served[batch] = [(x, bps[batch](x)) for x in inputs[batch]]
+
+        dev_counts = device_launches(replay_all, all_globals)
+        counts = read_counts()
+        print(f"Stage D, {label}: " + "; ".join(
+            f"B={b}: {bp.compile_seconds:.3f} s (warm-up + capture), graph memory "
+            f"{bp.graph_bytes / 2**20:.1f} MiB" for b, bp in bps.items()))
+        print(f"launches on the {label} path: wrappers ({builds} passes: warm-ups and "
+              f"captures) {counts}; on the card in the {replays} replays {dev_counts}")
+        return served, counts, dev_counts, bps
+
+    served, launches, dev_launches, bps = serve(prog, "RELAXED")
+    per_pass = {"conv_mapmajor": conv_kernel_groups, "matmul_mapmajor": 3}
+    for kern in counted:
+        want = builds * per_pass.get(kern, 0)
+        check(launches[kern] == want,
+              f"{kern}: {launches[kern]} wrapper calls, {want} expected ({builds} passes)")
+    check_device_launches(dev_launches, per_pass, replays, "RELAXED replays")
     results["launches"] = launches
+    results["device_launches"] = dev_launches
     results["stage_d_compiles"] = prog.stage_d_compiles
     check(prog.stage_d_compiles == 2, "two Stage-D specializations expected")
 
@@ -649,7 +738,7 @@ def main(argv=None) -> int:
     # ---- 4. main path, IMPRECISE_INT8 -------------------------------------
     t0 = time.perf_counter()
     prog8 = synthesize(net, params, (val_x, val_y), device="h100", planner_config=cfg,
-                       forced_mode=int8)
+                       forced_mode=int8, registry=synth_registry, tracer=tracer)
     synth8_s = time.perf_counter() - t0
     print(f"int8 synthesis ({synth8_s:.2f} s); plan:")
     print("  " + prog8.plan.table().replace("\n", "\n  "))
@@ -665,14 +754,13 @@ def main(argv=None) -> int:
           "forced int8 with calibration images left a layer uncalibrated")
     check(groups8["dense"] == 3, f"{groups8['dense']} int8 dense groups on the kernel")
     check(groups8["conv"] >= 1, "no int8 conv group routed to the kernel")
-    served8, launches8 = serve(prog8)
-    print(f"launches on the int8 path ({runs} forward passes): {launches8}")
-    check(launches8["conv_mapmajor_int8"] == runs * groups8["conv"],
-          f"int8 conv launches {launches8['conv_mapmajor_int8']} != {runs} x {groups8['conv']}")
-    check(launches8["matmul_mapmajor_int8"] == runs * 3,
-          f"int8 matmul launches {launches8['matmul_mapmajor_int8']} != {runs} x 3")
-    check(launches8["conv_mapmajor"] == launches8["matmul_mapmajor"] == 0,
-          "a float kernel launched on the int8 path")
+    served8, launches8, dev_launches8, bps8 = serve(prog8, "IMPRECISE_INT8")
+    per_pass8 = {"conv_mapmajor_int8": groups8["conv"], "matmul_mapmajor_int8": 3}
+    for kern in counted:
+        want = builds * per_pass8.get(kern, 0)
+        check(launches8[kern] == want,
+              f"{kern}: {launches8[kern]} wrapper calls, {want} expected ({builds} passes)")
+    check_device_launches(dev_launches8, per_pass8, replays, "IMPRECISE_INT8 replays")
     check(prog8.stage_d_compiles == 2, "two Stage-D specializations expected")
 
     # The same program (plan, quantized weights, qparams) on CPU copies.
@@ -712,7 +800,8 @@ def main(argv=None) -> int:
     check([(n, lp.impl, lp.u) for n, lp in prog8_cpu.plan]
           == [(n, lp.impl, lp.u) for n, lp in prog8.plan],
           "CPU copy routed the int8 program differently")
-    results["int8"] = {"launches": launches8, "act_scales": act_scales,
+    results["int8"] = {"launches": launches8, "device_launches": dev_launches8,
+                       "act_scales": act_scales,
                        "synthesis_seconds": synth8_s,
                        "card_vs_cpu": {"top1_equal": n_equal8, "images": n_img8,
                                        "max_dlogit": max_dlogit8,
@@ -761,7 +850,7 @@ def main(argv=None) -> int:
     def row(kern, name, batch, calls, plain, lib, flops, nbytes, peak,
             imprecise_calls=None, blocks=None):
         rows.append({"kernel": kern, "layer": name, "batch": batch,
-                     "ms": graph_ms(calls), "call_ms": cuda_ms(calls[0]),
+                     "ms": graph_ms(calls), "call_ms": cuda_ms(calls[0])[0],
                      "imprecise_ms": graph_ms(imprecise_calls) if imprecise_calls else None,
                      "plain_ms": plain, "library_ms": graph_ms(lib) if lib else None,
                      "flops": flops, "bytes": nbytes, "peak": peak, "blocks": blocks})
@@ -777,7 +866,7 @@ def main(argv=None) -> int:
             xb, wc, b, out_hw=(hw, hw), mode=mode, apply_relu=True)
             for wc in copies] for mode in (relaxed, imprecise)}
         plain = cuda_ms(lambda: conv_mapmajor_plain(xb, wb, b, out_hw=(hw, hw),
-                                                    mode=relaxed, apply_relu=True), reps=5)
+                                                    mode=relaxed, apply_relu=True), reps=5)[0]
         # The layer's own NCHW operands: no SAME border, no zero lanes past
         # cin.  The library call and the bound do the layer's work, not the
         # kernel's padded work.
@@ -803,7 +892,7 @@ def main(argv=None) -> int:
                                                   apply_relu=True)
                  for wc in cold_copies(w8)]
         plain = cuda_ms(lambda: conv_mapmajor_int8_plain(x8, w8, s8, b, out_hw=(hw, hw),
-                                                         apply_relu=True), reps=3)
+                                                         apply_relu=True), reps=3)[0]
         # The layer's own work: 1-byte activations and weights, bf16 out, f32
         # scale and bias; the library call (if any) on the layer's own NCHW
         # int8 operands.
@@ -833,7 +922,7 @@ def main(argv=None) -> int:
             for wc in copies] for mode in (relaxed, imprecise)}
         plain = cuda_ms(lambda: matmul_mapmajor_plain(ab, wb, bias, mode=relaxed,
                                                       bk=block_k(128), apply_relu=True),
-                        reps=5)
+                        reps=5)[0]
         bias_lib = bias.to(bf16)
         lib_calls = [lambda wc=wc: torch.addmm(bias_lib, ab, wc) for wc in copies]
         flops = 2.0 * batch * kdim * ndim
@@ -844,7 +933,7 @@ def main(argv=None) -> int:
         del copies, kernel_calls, lib_calls
     for (name, batch), (a8, wm8, s8, bias) in mm8_inputs.items():
         plain = cuda_ms(lambda: matmul_mapmajor_int8_plain(a8, wm8, s8, bias,
-                                                           apply_relu=True), reps=5)
+                                                           apply_relu=True), reps=5)[0]
         # cuBLASLt's int8 product (int32 out, no flush) needs M > 16: A is
         # padded to 32 rows; B column-major, cuBLASLt's int8 layout.
         a32 = F.pad(a8, (0, 0, 0, 32 - batch))
@@ -916,24 +1005,57 @@ def main(argv=None) -> int:
         results["baseline"] = {"tree": args.baseline, "int8_kernels": compare,
                                "int8_logits_bit_equal": all(same)}
 
+    # End to end: the eager walk against the replayed graph, in turns
+    # (eager, graph, graph, eager), each between CUDA events (host dispatch
+    # included) and on the host clock to a synchronize.
     e2e = {}
-    for label, program, outs in (("relaxed", prog, served), ("int8", prog8, served8)):
+    programs = (("relaxed", prog, served, bps), ("int8", prog8, served8, bps8))
+    for label, program, outs, bp_of in programs:
         e2e[label] = {}
         for batch in (1, 8):
-            bp = program.for_batch(batch)
+            bp = bp_of[batch]
             x = outs[batch][0][0]
-            ms = cuda_ms(lambda: bp(x), reps=10)
-            e2e[label][batch] = {"ms_per_batch": ms, "images_per_s": batch / ms * 1e3}
-            print(f"end to end {label} B={batch}: {ms:.3f} ms per batch, "
-                  f"{batch / ms * 1e3:.1f} img/s")
+            fns = {"eager": lambda: program.infer(x), "graph": lambda: bp(x)}
+            ev = {k: [] for k in fns}
+            wall = {k: [] for k in fns}
+            for k in ("eager", "graph", "graph", "eager"):
+                ev_ms, host_ms = cuda_ms(fns[k], reps=20)
+                ev[k].append(ev_ms)
+                wall[k].append(host_ms)
+            row_ = {k: {"ms_per_batch": statistics.mean(ev[k]),
+                        "ms_runs": ev[k], "host_ms": statistics.mean(wall[k]),
+                        "images_per_s": batch / statistics.mean(ev[k]) * 1e3}
+                    for k in fns}
+            got, want = bp(x), program.infer(x)
+            torch.cuda.synchronize()
+            d = (got.float() - want.float()).abs().max().item()
+            check(torch.equal(got, want),
+                  f"{label} B={batch}: the replay differs from the eager walk by {d:.3g} "
+                  "in the probabilities")
+            e2e[label][batch] = row_
+            print(f"end to end {label} B={batch}: eager {row_['eager']['ms_per_batch']:.3f} ms "
+                  f"(host clock {row_['eager']['host_ms']:.3f}), graph "
+                  f"{row_['graph']['ms_per_batch']:.3f} ms (host clock "
+                  f"{row_['graph']['host_ms']:.3f}) per batch, "
+                  f"{row_['graph']['images_per_s']:.1f} img/s replayed; replay bit-equal "
+                  "to eager")
     results["end_to_end"] = e2e
     phase_done("times")
 
     # ---- 6. where the time goes: one profiled window at batch 8 each ------
     from torch.profiler import ProfilerActivity, profile
     results["profile_b8"] = {}
-    for label, program, outs in (("relaxed", prog, served), ("int8", prog8, served8)):
-        bp = program.for_batch(8)
+    kernel_names = {"relaxed": ("conv_mapmajor_kernel", "matmul_mapmajor_split",
+                                "matmul_mapmajor_reduce"),
+                    "int8": ("conv_mapmajor_int8_kernel", "matmul_mapmajor_int8_split",
+                             "matmul_mapmajor_int8_reduce")}
+    # A first, discarded window: the profiler's own start-up (CUPTI) would
+    # otherwise land in the first program's measured window.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        bps[8](served[8][0][0])
+        torch.cuda.synchronize()
+    for label, program, outs, bp_of in programs:
+        bp = bp_of[8]
         x = outs[8][0][0]
         bp(x)
         torch.cuda.synchronize()
@@ -949,35 +1071,209 @@ def main(argv=None) -> int:
                 by_kernel[ev.key] = ev.self_device_time_total / 3 / 1e3
         busy_ms = sum(by_kernel.values())
         if busy_ms:
-            print(f"profile {label} B=8: {wall_ms:.3f} ms per batch on the host clock, "
-                  f"device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}); top device "
-                  "kernels:")
+            print(f"profile {label} B=8 (replayed graph): {wall_ms:.3f} ms per batch on "
+                  f"the host clock, device busy {busy_ms:.3f} ms "
+                  f"({busy_ms / wall_ms:.1%}); top device kernels:")
             for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
                 print(f"  {ms:8.4f} ms  {name[:90]}")
+            missing = [k for k in kernel_names[label]
+                       if not any(k + "<" in n or k + "(" in n for n in by_kernel)]
+            check(not missing, f"profile {label}: no device time for {missing} in the "
+                               "replayed window")
         else:
             print(f"profile {label} B=8: the profiler recorded no device time (not measured)")
         results["profile_b8"][label] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                                         "by_kernel_ms": by_kernel}
     phase_done("profile")
 
-    # One entry per kernel: its launches on its main path; times summed over
-    # the layers it serves in one batch-8 forward pass (float kernels in
-    # RELAXED, int8 kernels under IMPRECISE_INT8).
+    # ---- 7. the serving tier ----------------------------------------------
+    from repro_torch.serving import (ProgramCache, ReplicaSet, ServingConfig,
+                                     run_offered_load, warm_buckets)
+    serve_cfg = ServingConfig(max_batch=8, max_delay_s=0.002)
+    n_requests = 128
+    n_saturate, n_paced = 4096, 2048
+    results["serving"] = {}
+
+    def load_entry(report, replicas):
+        srv = report.server_stats
+        check(srv["failed"] == 0, f"serving x{replicas}: {srv['failed']} requests failed")
+        check(report.admitted + report.shed_requests == report.requests
+              and srv["completed"] == report.admitted,
+              f"serving x{replicas}: admitted + shed != requests")
+        return {"replicas": replicas, "requests": report.requests,
+                "offered_per_s": report.offered_rate_rps,
+                "admitted": report.admitted, "shed": report.shed_requests,
+                "shed_share": report.shed_requests / report.requests,
+                "failed": srv["failed"], "p50_ms": report.latency_ms(50),
+                "p95_ms": report.latency_ms(95), "p99_ms": report.latency_ms(99),
+                "mean_ms": report.latency_mean_ms,
+                "images_per_s": report.sustained_per_s,
+                "wall_seconds": report.wall_seconds,
+                "bucket_counts": srv["bucket_counts"],
+                "padding_fraction": srv["padding_fraction"]}
+
+    for label, program, _, _ in programs:
+        per_pass_s = per_pass if program is prog else per_pass8
+        cache = ProgramCache(config=serve_cfg, registry=MetricsRegistry(),
+                             tracer=tracer)
+        cache.admit(program)
+        # Stage D for every bucket before any profiled window: a capture is
+        # not made under the profiler.
+        warm_buckets(cache, program, serve_cfg.max_batch)
+        results["serving"][label] = {}
+        for replicas in (1, 2):
+            # (a) 128 requests back to back under a profiler window: every
+            # response against its bucket's BatchProgram, and every replay's
+            # kernels counted on the card.
+            registry = MetricsRegistry()
+            tier = ReplicaSet(program, config=serve_cfg.with_replicas(replicas),
+                              cache=cache, registry=registry, tracer=tracer)
+            buckets = []
+            for r in tier.replicas:
+                def logged(bucket, _inner=r.server.dispatch_bucket):
+                    buckets.append(([q.image for q in bucket.requests], bucket.batch,
+                                    [q.future for q in bucket.requests]))
+                    _inner(bucket)
+                r.server.dispatch_bucket = logged
+            reports = []
+
+            def back_to_back():
+                reports.append(run_offered_load(tier, requests=n_requests,
+                                                seed=SEED + 5))
+
+            reset_counts()
+            serve_dev = device_launches(back_to_back, all_globals)
+            report = reports[0]
+            serve_counts = read_counts()
+            entry = load_entry(report, replicas)
+            # warm_replicas replays each of the 4 buckets once per replica,
+            # then one replay per dispatched bucket.
+            passes = 4 * replicas + report.server_stats["batches"]
+            check_device_launches(serve_dev, per_pass_s, passes,
+                                  f"serving {label} x{replicas}")
+            check(not any(serve_counts.values()),
+                  f"serving {label}: a wrapper ran outside a graph: {serve_counts}")
+            n_checked = 0
+            for images, batch, futures in buckets:
+                xb = np.stack(images)
+                xb = np.concatenate([xb, np.zeros((batch - len(xb), *xb.shape[1:]),
+                                                  xb.dtype)])
+                want = cache.get_or_build(program, batch)(
+                    torch.from_numpy(xb).to(dev)).cpu().numpy()
+                for j, f in enumerate(futures):
+                    check(np.array_equal(f.result(timeout=60), want[j]),
+                          f"serving {label}: a response differs from its bucket's "
+                          "BatchProgram")
+                    n_checked += 1
+            check(n_checked == report.admitted, "a served request was not checked")
+            snap = registry.snapshot()
+            check({"serving_dispatch_seconds", "serving_tier_submitted_total",
+                   "serving_batcher_flush_total"} <= set(snap)
+                  and "serving_cache_stage_d_compiles_total" in cache.registry.snapshot(),
+                  "serving_* series missing from the snapshot")
+            entry.update(device_launches=serve_dev, replay_passes=passes,
+                         responses_bit_equal=n_checked)
+            print(f"serving {label}, {replicas} replica(s), {n_requests} requests back to "
+                  f"back (profiled): {report.admitted} admitted, {report.shed_requests} "
+                  f"shed, 0 failed; buckets {entry['bucket_counts']}; {n_checked} "
+                  f"responses bit-equal to their bucket's BatchProgram; {passes} replays, "
+                  f"kernels on the card {serve_dev}")
+            # (b) saturation: n_saturate back to back, admission bound above
+            # the request count, so nothing is shed: the tier's capacity.
+            sat_cfg = dataclasses.replace(serve_cfg, replicas=replicas,
+                                          max_queue_depth=n_saturate)
+            sat = load_entry(run_offered_load(
+                ReplicaSet(program, config=sat_cfg, cache=cache,
+                           registry=MetricsRegistry(), tracer=tracer),
+                requests=n_saturate, seed=SEED + 6), replicas)
+            check(sat["shed"] == 0, f"serving {label}: shed under an unreachable bound")
+            # (c) latency under load: n_paced offered open loop at half that
+            # capacity, the default admission bound (64 per replica).
+            rate = sat["images_per_s"] / 2
+            paced = load_entry(run_offered_load(
+                ReplicaSet(program, config=serve_cfg.with_replicas(replicas),
+                           cache=cache, registry=MetricsRegistry(), tracer=tracer),
+                requests=n_paced, rate=rate, seed=SEED + 7), replicas)
+            results["serving"][label][f"x{replicas}"] = {
+                "back_to_back_128": entry, "saturation": sat, "paced": paced}
+            for what, e in (("saturation", sat), ("half load", paced)):
+                print(f"serving {label}, {replicas} replica(s), {what}: {e['requests']} "
+                      f"requests offered at "
+                      + (f"{e['offered_per_s']:.1f}/s" if e["offered_per_s"] else "once")
+                      + f" over {e['wall_seconds']:.2f} s: {e['images_per_s']:.1f} img/s, "
+                      f"p50 {e['p50_ms']:.3f} ms, p95 {e['p95_ms']:.3f} ms, p99 "
+                      f"{e['p99_ms']:.3f} ms; {e['shed']} shed ({e['shed_share']:.2%}), "
+                      f"0 failed; buckets {e['bucket_counts']}")
+        compiles = cache.stats.stage_d_compiles
+        check(compiles <= 4, f"serving {label}: {compiles} Stage-D builds (at most 4)")
+        # Where a bucket of 8 spends its dispatch (host clock to a
+        # synchronize, median of 20 each): the stack of the requests'
+        # images, the copy to the card, the replay, the copy back.
+        bp8 = cache.get_or_build(program, 8)
+        images = list(np.random.default_rng(SEED).standard_normal(
+            (8, *net.input_shape)).astype(np.float32))
+        x8 = np.stack(images)
+        x8_dev = torch.from_numpy(x8).to(dev)
+        out8 = bp8(x8_dev)
+        parts = {"stack": cuda_ms(lambda: np.stack(images))[1],
+                 "to_device": cuda_ms(lambda: torch.from_numpy(x8).to(dev))[1],
+                 "replay": cuda_ms(lambda: bp8(x8_dev))[1],
+                 "to_host": cuda_ms(lambda: out8.cpu().numpy())[1]}
+        results["serving"][label]["bucket8_ms"] = parts
+        print(f"serving {label}: a bucket of 8, host clock: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items()))
+        graph_mib = {b: cache.get_or_build(program, b).graph_bytes / 2**20
+                     for b in (1, 2, 4, 8)}
+        results["serving"][label]["stage_d_compiles"] = compiles
+        results["serving"][label]["graph_mib"] = graph_mib
+        print(f"serving {label}: {compiles} Stage-D builds; graph memory per bucket (MiB): "
+              + ", ".join(f"B={b}: {m:.1f}" for b, m in graph_mib.items()))
+    span_names = {sp.name for sp in tracer.finished()}
+    check("serve.dispatch" in span_names
+          and any(n.startswith("synthesis.") for n in span_names),
+          "serve.dispatch or synthesis.* spans missing from the trace")
+    print("trace spans: " + ", ".join(sorted(span_names)))
+    print(f"synthesis counters: runs "
+          f"{synth_registry.counter('synthesis_runs_total').value():.0f}, "
+          f"iterations {synth_registry.counter('synthesis_iterations_total').value():.0f}")
+    results["trace_spans"] = sorted(span_names)
+
+    # The launcher, as a user runs it, in a child process.
+    t0 = time.perf_counter()
+    launcher = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_cnn", "--net", "alexnet",
+         "--scale", "1.0", "--input-hw", "227", "--classes", "1000", "--requests", "64"],
+        cwd=repo, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.path.join(repo, "src")))
+    print(f"serve_cnn (full-width AlexNet, 64 requests): rc {launcher.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for line in launcher.stdout.splitlines()[:6]:
+        print(f"  {line}")
+    check(launcher.returncode == 0,
+          f"serve_cnn exited {launcher.returncode}: {launcher.stderr[-2000:]}")
+    results["serve_cnn_stdout"] = launcher.stdout
+    phase_done("serving")
+
+    # One entry per kernel: its wrapper's launches on its main path (warm-ups
+    # and captures) and its globals' launches on the card in that path's
+    # replays; times summed over the layers it serves in one batch-8
+    # forward pass (float kernels in RELAXED, int8 kernels under
+    # IMPRECISE_INT8).
     summary = []
     sources = {
         "conv_mapmajor": ("src/repro_torch/kernels/csrc/conv_mapmajor.cu",
                           "src/repro/kernels/conv_mapmajor/conv_mapmajor.py:106",
-                          prog, launches),
+                          prog, launches, dev_launches),
         "matmul_mapmajor": ("src/repro_torch/kernels/csrc/matmul_mapmajor.cu",
                             "src/repro/kernels/matmul_mapmajor/matmul_mapmajor.py:67",
-                            prog, launches),
+                            prog, launches, dev_launches),
         "conv_mapmajor_int8": ("src/repro_torch/kernels/csrc/conv_mapmajor_int8.cu",
                                "src/repro/kernels/conv_mapmajor/conv_mapmajor.py:168",
-                               prog8, launches8),
+                               prog8, launches8, dev_launches8),
         "matmul_mapmajor_int8": ("src/repro_torch/kernels/csrc/matmul_mapmajor_int8.cu",
                                  "src/repro/kernels/matmul_mapmajor/matmul_mapmajor.py:96",
-                                 prog8, launches8)}
-    for kern, (source, replaces, program, counts) in sources.items():
+                                 prog8, launches8, dev_launches8)}
+    for kern, (source, replaces, program, counts, dev_counts) in sources.items():
         routed = {g.name for g in program.plan.graph.groups
                   if program.plan.for_layer(g.name).impl == IMPL_KERNEL}
         sel = [r for r in per_shape if r["kernel"] == kern and r["batch"] == 8
@@ -988,7 +1284,9 @@ def main(argv=None) -> int:
         libs = [r["library_ms"] for r in sel]
         entry = {
             "name": kern, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[kern], "max_abs_err": max(errs[kern]),
+            "launches": counts[kern],
+            "replay_launches_on_card": {g: dev_counts[g] for g in device_kernels[kern]},
+            "max_abs_err": max(errs[kern]),
             "ms": sum(r["ms"] for r in sel), "plain_ms": sum(r["plain_ms"] for r in sel),
             "bound_ms": max(bound_ops, bound_bytes),
             "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",

@@ -9,9 +9,13 @@ program runs on) and, optionally, a validation set (images, labels).
   C. with a validation set, the fixed-point loop (plan -> mode probe ->
      re-plan) and the final validation gate on the emitted program, which
      demotes modes toward all-PRECISE until the budget holds;
-  D. :meth:`SynthesizedProgram.for_batch` fixes the input shape, runs one
-     warm-up (which builds and loads the kernels) and counts it in
-     ``stage_d_compiles``.  CUDA graph capture is later work.
+  D. :meth:`SynthesizedProgram.for_batch` fixes the input shape.  On the
+     card it runs one warm-up (which builds and loads the kernels and lets
+     cuDNN pick its algorithms) and captures the whole forward pass in one
+     CUDA graph: a request is then one input copy, one graph replay and
+     one output clone, with no per-op host dispatch (the counterpart of the
+     reference's one AOT-compiled executable per batch).  On the CPU it
+     runs the warm-up only.  Either way it counts one ``stage_d_compiles``.
 
 When IMPRECISE_INT8 can ship (``allow_int8=True``, ``forced_mode``, or a
 supplied plan that has it) and a validation set gives calibration images,
@@ -19,13 +23,15 @@ the static per-tensor activation scales are calibrated once, up front, and
 attached to exactly the IMPRECISE_INT8 layers after every re-plan; without
 images those layers keep the dequant path.
 
-Not ported yet (ROADMAP.md queue 1): ``tracer=``, ``registry=``,
+``tracer=`` and ``registry=`` record the reference's ``synthesis.*`` spans
+and ``synthesis_*`` counters.  Not ported yet (ROADMAP.md queue 1):
 ``artifact_store=``, ``autotune=`` and ``autotune_input=``.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
@@ -33,6 +39,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..device.profile import DeviceProfile, resolve_profile
+from ..obs import MetricsRegistry, Tracer
 from .graph import lower_network
 from .layout import LANES
 from .mode_selector import ModeSelectionReport, refine_plan
@@ -51,14 +58,44 @@ MAX_SYNTHESIS_ITERATIONS = 4
 _GATE_EPS = 1e-9
 
 
+#: One CUDA graph capture at a time in the process (a capture must not
+#: overlap another one); the program cache builds distinct buckets from
+#: several threads at once.
+_CAPTURE_LOCK = threading.Lock()
+
+
 @dataclass
 class BatchProgram:
-    """One Stage-D artifact: the program for a fixed (B, C, H, W) input."""
+    """One Stage-D artifact: the program for a fixed (B, C, H, W) input.
+
+    On the card it holds one CUDA graph of the whole forward pass, captured
+    by :meth:`SynthesizedProgram.for_batch`, with its static input, its
+    static output (in the graph's private memory pool) and
+    ``graph_bytes``, the device memory the capture reserved for that pool.
+    A call copies ``x`` into the static input, replays the graph and
+    returns a clone of the static output, under a lock of its own: the
+    program cache hands one ``BatchProgram`` to every replica's dispatch
+    thread.  The kernel wrappers count their calls in the warm-up and the
+    capture; a replay calls no wrapper, so its launches are seen on the
+    card only (a profiler counts them by kernel name).  Dropping the last
+    reference frees the graph and its pool.  On the CPU it calls the eager
+    forward pass.
+    """
     batch: int
     input_shape: Tuple[int, ...]
     plan_fingerprint: str
     compile_seconds: float
-    _forward: Callable[[torch.Tensor], torch.Tensor]
+    _forward: Callable[[torch.Tensor], torch.Tensor] = field(repr=False)
+    _graph: Optional["torch.cuda.CUDAGraph"] = field(default=None, repr=False)
+    _static_in: Optional[torch.Tensor] = field(default=None, repr=False)
+    _static_out: Optional[torch.Tensor] = field(default=None, repr=False)
+    graph_bytes: int = 0
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    @property
+    def captured(self) -> bool:
+        """Whether calls replay a CUDA graph (else they run eagerly)."""
+        return self._graph is not None
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if tuple(x.shape) != self.input_shape:
@@ -66,7 +103,12 @@ class BatchProgram:
                 f"BatchProgram built for {self.input_shape}, got "
                 f"{tuple(x.shape)}; use SynthesizedProgram.for_batch"
                 f"({x.shape[0]}) or the serving batcher")
-        return self._forward(x)
+        if self._graph is None:
+            return self._forward(x)              # a CPU program
+        with self._lock:
+            self._static_in.copy_(x)
+            self._graph.replay()
+            return self._static_out.clone()
 
 
 @dataclass
@@ -121,22 +163,59 @@ class SynthesizedProgram:
         return f"{self.plan.fingerprint()}-{self.params_digest()}"
 
     def for_batch(self, batch: int) -> BatchProgram:
-        """Stage D alone: fix the input shape to ``(batch, C, H, W)`` and run
-        one warm-up on zeros (kernel builds and loads happen here), counted
-        in ``stage_d_compiles``."""
+        """Stage D alone: fix the input shape to ``(batch, C, H, W)``.
+
+        On the card: a static zero input, one warm-up of :meth:`infer` on a
+        side stream (kernel builds and loads, cuDNN's algorithm choice),
+        then :meth:`infer` captured in one CUDA graph.  A capture that fails
+        (a host synchronization or a host-to-device copy in the forward
+        pass) raises; nothing falls back to the eager walk on the card.  On
+        the CPU: one eager warm-up.  Counted in ``stage_d_compiles``, warm-up
+        and capture in ``compile_seconds``.
+        """
         if batch < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
         shape = (batch, *self.net.input_shape)
         dev = self.device
         t0 = time.perf_counter()
-        self.infer(torch.zeros(shape, dtype=self.input_dtype, device=dev))
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        static_in = torch.zeros(shape, dtype=self.input_dtype, device=dev)
+        if dev.type != "cuda":
+            self.infer(static_in)
+            self.stage_d_compiles += 1
+            return BatchProgram(batch=batch, input_shape=shape,
+                                plan_fingerprint=self.plan.fingerprint(),
+                                compile_seconds=time.perf_counter() - t0,
+                                _forward=self.infer)
+        with _CAPTURE_LOCK:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self.infer(static_in)
+                torch.cuda.synchronize(dev)
+                reserved = torch.cuda.memory_reserved(dev)
+                graph = torch.cuda.CUDAGraph()
+                try:
+                    # thread_local: other replicas' threads may synchronize
+                    # or replay while this one captures.
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        static_out = self.infer(static_in)
+                    finally:
+                        graph.capture_end()
+                except RuntimeError as e:
+                    raise RuntimeError(
+                        f"Stage D: CUDA graph capture of {self.net.name} at "
+                        f"{shape} failed; the forward pass must not "
+                        f"synchronize with or copy from the host: {e}") from e
+                torch.cuda.synchronize(dev)
+                graph_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.stage_d_compiles += 1
         return BatchProgram(batch=batch, input_shape=shape,
                             plan_fingerprint=self.plan.fingerprint(),
                             compile_seconds=time.perf_counter() - t0,
-                            _forward=self.infer)
+                            _forward=self.infer, _graph=graph,
+                            _static_in=static_in, _static_out=static_out,
+                            graph_bytes=graph_bytes)
 
     def report(self) -> str:
         lines = [f"== Cappuccino synthesis report: {self.net.name} ==",
@@ -290,7 +369,10 @@ def synthesize(net: NetworkDescription,
                planner_config: Optional[PlannerConfig] = None,
                max_iterations: int = MAX_SYNTHESIS_ITERATIONS,
                forced_mode: Optional[ComputeMode] = None,
-               fuse: bool = True) -> SynthesizedProgram:
+               fuse: bool = True,
+               tracer: Optional[Tracer] = None,
+               registry: Optional[MetricsRegistry] = None
+               ) -> SynthesizedProgram:
     """Run the pipeline and return the synthesized program.
 
     ``device=`` names the synthesis target's :class:`DeviceProfile` (a
@@ -303,10 +385,26 @@ def synthesize(net: NetworkDescription,
     IMPRECISE_INT8.  The validation images also calibrate the int8
     activation scales.  ``fuse`` lowers through the graph passes first (one
     dispatch per fused group).
+
+    ``tracer=`` records the pipeline as the reference's nested
+    ``synthesis.*`` spans (Stage-A planning, each fixed-point iteration
+    with its Stage-C probe, the validation gate and its demotion events);
+    ``registry=`` accumulates the ``synthesis_*`` counters.  Both default
+    to off.
     """
     t0 = time.perf_counter()
     if max_iterations < 1:
         raise ValueError(f"max_iterations must be >= 1, got {max_iterations}")
+    _t = tracer if tracer is not None else Tracer(enabled=False)
+
+    def _count(name: str, amount: float = 1.0, help: str = "") -> None:
+        if registry is not None:
+            registry.counter(name, help).inc(amount)
+
+    _count("synthesis_runs_total", 1, "synthesize() invocations")
+    # Materialized at zero up front, as in the reference: "zero iterations"
+    # is a reading, not a missing series.
+    _count("synthesis_iterations_total", 0, "Fixed-point plan/probe rounds")
 
     if device is not None:
         profile = resolve_profile(device)
@@ -328,8 +426,9 @@ def synthesize(net: NetworkDescription,
 
     # Stage A.
     if plan is None:
-        graph = lower_network(net) if fuse else None
-        plan = plan_network(net, config=planner_config, graph=graph)
+        with _t.span("synthesis.stage_a_plan", net=net.name, fuse=fuse):
+            graph = lower_network(net) if fuse else None
+            plan = plan_network(net, config=planner_config, graph=graph)
 
     # Int8 calibration, once, up front, when IMPRECISE_INT8 can ship.
     wants_int8 = (allow_int8 or forced_mode is ComputeMode.IMPRECISE_INT8
@@ -351,12 +450,15 @@ def synthesize(net: NetworkDescription,
                                  if forced_mode is not None
                                  else "no validation set"),
             act_scales=_shipped_scales(plan, act_qparams))
-        return SynthesizedProgram(
+        program = SynthesizedProgram(
             net=net, plan=plan, modes=modes,
             parallelism=_dominant_policy(net, plan), mode_report=None,
             synthesis_seconds=time.perf_counter() - t0,
             synthesis_report=synthesis_report,
             prepared=_prepare_params(net, params, modes))
+        _count("synthesis_seconds_total", program.synthesis_seconds,
+               "Wall seconds spent inside synthesize()")
+        return program
 
     # ---- Fixed-point loop: plan -> mode probe -> re-plan -> re-probe ------
     images, labels = validation
@@ -372,45 +474,52 @@ def synthesize(net: NetworkDescription,
     current = _attach_qparams(plan, act_qparams)
 
     for i in range(1, max_iterations + 1):
-        # The all-PRECISE reference holds while the plan it would run under
-        # is unchanged.
-        ref_fp = current.with_modes(precise_modes).fingerprint()
-        if ref_fp != probe_reference_fp:
-            probe_reference, probe_reference_fp = None, ref_fp
-        report, probed = refine_plan(current, layer_names, evaluate_plan,
-                                     max_degradation=max_degradation,
-                                     allow_int8=allow_int8,
-                                     reference=probe_reference)
-        probe_reference = report.reference_metric
-        modes = report.modes
-        probed = _attach_qparams(probed, act_qparams)
-        next_plan = _attach_qparams(
-            _replan(net, probed, modes, planner_config), act_qparams)
-        key = (next_plan.fingerprint(), _modes_key(modes))
-        synthesis_report.iterations.append(IterationRecord(
-            index=i, plan_fingerprint=next_plan.fingerprint(),
-            modes=dict(modes), probe_metric=report.final_metric,
-            evaluations=report.evaluations))
-        states.append((next_plan, modes, report))
+        with _t.span("synthesis.iteration", index=i) as it_span:
+            _count("synthesis_iterations_total", 1,
+                   "Fixed-point plan/probe rounds")
+            # The all-PRECISE reference holds while the plan it would run under
+            # is unchanged.
+            ref_fp = current.with_modes(precise_modes).fingerprint()
+            if ref_fp != probe_reference_fp:
+                probe_reference, probe_reference_fp = None, ref_fp
+            with _t.span("synthesis.stage_c_probe", index=i):
+                report, probed = refine_plan(current, layer_names, evaluate_plan,
+                                             max_degradation=max_degradation,
+                                             allow_int8=allow_int8,
+                                             reference=probe_reference)
+            probe_reference = report.reference_metric
+            modes = report.modes
+            probed = _attach_qparams(probed, act_qparams)
+            next_plan = _attach_qparams(
+                _replan(net, probed, modes, planner_config), act_qparams)
+            key = (next_plan.fingerprint(), _modes_key(modes))
+            if it_span is not None:
+                it_span.attrs["fingerprint"] = next_plan.fingerprint()
+                it_span.attrs["evaluations"] = report.evaluations
+            synthesis_report.iterations.append(IterationRecord(
+                index=i, plan_fingerprint=next_plan.fingerprint(),
+                modes=dict(modes), probe_metric=report.final_metric,
+                evaluations=report.evaluations))
+            states.append((next_plan, modes, report))
 
-        # Fixed point: re-planning changed nothing vs what Stage C measured,
-        # or the (fingerprint, modes) pair repeats the previous round.
-        prev_key = (states[-2][0].fingerprint(), _modes_key(states[-2][1])) \
-            if len(states) >= 2 else None
-        if next_plan.fingerprint() == probed.fingerprint() or key == prev_key:
-            synthesis_report.converged = True
-            current, mode_report = next_plan, report
-            break
-        if key in seen:
-            # Cycle: keep the member with the smallest (fingerprint, modes).
-            cycle = states[seen[key]:-1]
-            chosen = min(cycle, key=lambda s: (s[0].fingerprint(),
-                                               _modes_key(s[1])))
-            synthesis_report.tie_broken = True
-            current, modes, mode_report = chosen
-            break
-        seen[key] = len(states) - 1
-        current = next_plan
+            # Fixed point: re-planning changed nothing vs what Stage C measured,
+            # or the (fingerprint, modes) pair repeats the previous round.
+            prev_key = (states[-2][0].fingerprint(), _modes_key(states[-2][1])) \
+                if len(states) >= 2 else None
+            if next_plan.fingerprint() == probed.fingerprint() or key == prev_key:
+                synthesis_report.converged = True
+                current, mode_report = next_plan, report
+                break
+            if key in seen:
+                # Cycle: keep the member with the smallest (fingerprint, modes).
+                cycle = states[seen[key]:-1]
+                chosen = min(cycle, key=lambda s: (s[0].fingerprint(),
+                                                   _modes_key(s[1])))
+                synthesis_report.tie_broken = True
+                current, modes, mode_report = chosen
+                break
+            seen[key] = len(states) - 1
+            current = next_plan
     else:
         chosen = min(states, key=lambda s: (s[0].fingerprint(),
                                             _modes_key(s[1])))
@@ -418,6 +527,7 @@ def synthesize(net: NetworkDescription,
         current, modes, mode_report = chosen
 
     # ---- Final validation gate on the emitted dispatch path ---------------
+    gate_t0 = _t.clock()
     ref_plan = _attach_qparams(
         _replan(net, current, precise_modes, planner_config), act_qparams)
     ref_program = SynthesizedProgram(
@@ -456,11 +566,18 @@ def synthesize(net: NetworkDescription,
         synthesis_report.fallbacks.append(
             f"measured degradation {degradation:.4f} > budget "
             f"{max_degradation:.4f}: demoted {', '.join(changed)}")
+        _count("synthesis_gate_demotions_total", 1,
+               "Validation-gate mode demotion rounds")
+        _t.event("synthesis.gate_demotion", degradation=degradation,
+                 budget=max_degradation, demoted=", ".join(changed))
         cand_modes = demoted
         cand_plan = _attach_qparams(
             _replan(net, cand_plan, cand_modes, planner_config), act_qparams)
 
     synthesis_report.validated = passed
+    _t.record_span("synthesis.validation_gate", gate_t0, _t.clock(),
+                   passed=passed, demotions=len(synthesis_report.fallbacks),
+                   accuracy=acc, reference_accuracy=ref_acc)
     synthesis_report.act_scales = _shipped_scales(program.plan, act_qparams)
     if synthesis_report.fallbacks and mode_report is not None:
         program.mode_report = dataclasses.replace(
@@ -469,4 +586,6 @@ def synthesize(net: NetworkDescription,
                 "validation gate: Stage-C selection superseded by fallback; "
                 f"shipped modes re-measured at {acc:.4f} on the emitted path"])
     program.synthesis_seconds = time.perf_counter() - t0
+    _count("synthesis_seconds_total", program.synthesis_seconds,
+           "Wall seconds spent inside synthesize()")
     return program

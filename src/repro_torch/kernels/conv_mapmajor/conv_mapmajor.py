@@ -17,7 +17,8 @@ Each source's header says how it is tiled, what bounds it on an H100 and
 what its design does about that.  Each wrapper launches its kernel for CUDA
 tensors and takes its ``*_plain`` version for CPU tensors; it raises for
 anything else.  ``<wrapper>.launches`` counts kernel launches (and nothing
-else).
+else): a call made while a Stage-D CUDA graph is captured counts once,
+and a replay of that graph calls no wrapper, so it counts nothing.
 """
 from __future__ import annotations
 

@@ -22,7 +22,9 @@ what its design does about that.  Each wrapper launches its kernel for CUDA
 tensors and takes its ``*_plain`` version for CPU tensors; it raises for
 anything else.  ``<wrapper>.launches`` counts the wrapper's calls that ran
 its kernel (one per layer call, though the float kernel is two CUDA
-launches), and nothing else.
+launches), and nothing else: a call made while a Stage-D CUDA graph is
+captured counts once, and a replay of that graph calls no wrapper, so it
+counts nothing.
 """
 from __future__ import annotations
 
