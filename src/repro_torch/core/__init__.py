@@ -2,11 +2,12 @@
 
 - layout:        map-major data reordering (§IV-B)
 - precision:     inexact computing modes (§IV-C)
-- parallelism:   the OLP library convolution (§IV-A)
+- parallelism:   thread policies: OLP, and the FLP/KLP/sequential baselines (§IV-A)
 - network:       network-description DAG and the planned executor
 - graph:         graph passes -> fused dispatch groups
 - plan:          per-layer / per-group execution plans (Stage A's artifact)
-- planner:       static cost model (Stage A)
+- planner:       static cost model (Stage A), roofline predictions, autotune
+- capture:       CUDA graph capture (Stage D) and the timed dispatch unit
 - layer_ops:     the layer-op / implementation registries
 - mode_selector: per-layer inexact-mode analysis (Stage C)
 - synthesizer:   the end-to-end pipeline
@@ -18,16 +19,20 @@ from .layer_ops import (CONV_IMPLS as CONV_IMPL_REGISTRY, DENSE_IMPLS,
                         EPILOGUE_IMPLS, LAYER_OPS, apply_group, apply_layer,
                         register_conv_impl, register_dense_impl,
                         register_epilogue_impl, register_layer_op)
-from .layout import (LANES, from_map_major, num_groups, to_map_major,
-                     weights_to_map_major)
+from .layout import (LANES, from_map_major, mapmajor_scatter_order,
+                     num_groups, thread_to_whm, to_map_major,
+                     weights_to_map_major, whm_to_thread)
 from .mode_selector import ModeSelectionReport, refine_plan, select_modes
 from .network import (Layer, NetworkDescription, collect_activations,
                       run_network)
-from .parallelism import Parallelism, conv_olp, conv_policy
-from .plan import (DEFAULT_LAYER_PLAN, IMPL_DEFAULT, IMPL_KERNEL, IMPL_XLA,
+from .parallelism import (Parallelism, conv2d, conv2d_planned, conv_flp,
+                          conv_klp, conv_olp, conv_policy, conv_sequential)
+from .plan import (DEFAULT_LAYER_PLAN, IMPL_DEFAULT, IMPL_KERNEL,
+                   IMPL_SEQUENTIAL, IMPL_XLA,
                    ExecutionPlan, GroupPlan, IterationRecord, LayerPlan,
                    SynthesisReport, ValidationRecord, enforce_precise_xla)
-from .planner import PlannerConfig, plan_network, trace_shapes
+from .planner import (PlannerConfig, autotune_plan, plan_network,
+                      predict_group_seconds, trace_shapes)
 from .precision import (MODES_FASTEST_FIRST, ComputeMode, QParams,
                         QuantizedTensor, calibrate_act_scale,
                         fake_quantize_act, full_f32, mode_dot, mode_tolerance,
@@ -44,15 +49,18 @@ __all__ = [
     "CONV_IMPL_REGISTRY", "DENSE_IMPLS", "EPILOGUE_IMPLS", "LAYER_OPS",
     "apply_group", "apply_layer", "register_conv_impl", "register_dense_impl",
     "register_epilogue_impl", "register_layer_op",
-    "LANES", "from_map_major", "num_groups", "to_map_major",
-    "weights_to_map_major",
+    "LANES", "from_map_major", "mapmajor_scatter_order", "num_groups",
+    "thread_to_whm", "to_map_major", "weights_to_map_major", "whm_to_thread",
     "ModeSelectionReport", "refine_plan", "select_modes",
     "Layer", "NetworkDescription", "collect_activations", "run_network",
-    "Parallelism", "conv_olp", "conv_policy",
-    "DEFAULT_LAYER_PLAN", "IMPL_DEFAULT", "IMPL_KERNEL", "IMPL_XLA",
+    "Parallelism", "conv2d", "conv2d_planned", "conv_flp", "conv_klp",
+    "conv_olp", "conv_policy", "conv_sequential",
+    "DEFAULT_LAYER_PLAN", "IMPL_DEFAULT", "IMPL_KERNEL", "IMPL_SEQUENTIAL",
+    "IMPL_XLA",
     "ExecutionPlan", "GroupPlan", "IterationRecord", "LayerPlan",
     "SynthesisReport", "ValidationRecord", "enforce_precise_xla",
-    "PlannerConfig", "plan_network", "trace_shapes",
+    "PlannerConfig", "autotune_plan", "plan_network",
+    "predict_group_seconds", "trace_shapes",
     "MODES_FASTEST_FIRST", "ComputeMode", "QParams", "QuantizedTensor",
     "calibrate_act_scale", "fake_quantize_act", "full_f32", "mode_dot",
     "mode_tolerance", "prepare_operand", "prepare_weight",

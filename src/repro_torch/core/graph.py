@@ -333,14 +333,31 @@ class DispatchStats:
     """Executor-side dispatch accounting: ``dispatches`` counts group-level
     launches, ``layers`` what the unfused layer walk would have paid.
     Updates go through :meth:`record_group` under a lock; the integer fields
-    are plain reads.  (The JAX package's ``attach(registry)`` mirror into
-    metrics counters waits for the port of ``obs/``.)"""
+    are plain reads.  :meth:`attach` mirrors every recorded group into
+    ``exec_*`` counters of a :class:`~repro_torch.obs.MetricsRegistry`."""
     dispatches: int = 0
     layers: int = 0
     fused_groups: int = 0
     fused_away: int = 0
     _lock: threading.Lock = dataclass_field(
         default_factory=threading.Lock, repr=False, compare=False)
+    _registry: Optional[object] = dataclass_field(default=None, repr=False,
+                                                  compare=False)
+
+    def attach(self, registry) -> "DispatchStats":
+        """Mirror future increments into ``exec_*`` registry counters."""
+        registry.counter("exec_dispatches_total",
+                         "Group-level op launches by execute_graph").inc(0)
+        registry.counter("exec_layers_total",
+                         "Layers covered by those launches").inc(0)
+        registry.counter("exec_fused_groups_total",
+                         "Dispatched groups containing a fused epilogue"
+                         ).inc(0)
+        registry.counter("exec_fused_away_total",
+                         "Dispatches saved by fusion (layers - groups)"
+                         ).inc(0)
+        self._registry = registry
+        return self
 
     def record_group(self, group: FusedGroup) -> None:
         with self._lock:
@@ -349,6 +366,15 @@ class DispatchStats:
             if group.fused:
                 self.fused_groups += 1
                 self.fused_away += len(group.layers) - 1
+        reg = self._registry
+        if reg is not None:
+            with reg.lock:
+                reg.counter("exec_dispatches_total").inc()
+                reg.counter("exec_layers_total").inc(len(group.layers))
+                if group.fused:
+                    reg.counter("exec_fused_groups_total").inc()
+                    reg.counter("exec_fused_away_total").inc(
+                        len(group.layers) - 1)
 
 
 def execute_graph(graph: GraphProgram, plan: "ExecutionPlan", params,

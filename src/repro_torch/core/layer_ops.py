@@ -5,8 +5,9 @@ The counterpart of ``repro.core.layer_ops``:
   * ``LAYER_OPS`` — one op per layer kind; ``op(layer, plan, params, ins)``.
   * ``CONV_IMPLS`` / ``DENSE_IMPLS`` — named implementations of the two
     parametric kinds.  ``"xla"`` is the library path (``F.conv2d`` and
-    ``torch.matmul``); the map-major kernels register ``"cuda_mapmajor"``
-    from ``repro_torch.kernels.*.ops`` on first lookup.
+    ``torch.matmul``), ``"sequential"`` the paper's scalar loop-nest
+    baseline; the map-major kernels register ``"cuda_mapmajor"`` from
+    ``repro_torch.kernels.*.ops`` on first lookup.
   * ``EPILOGUE_IMPLS`` — (anchor kind, impl) hooks that fold a fused group's
     bias+ReLU into the anchor's own launch.
 
@@ -23,9 +24,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .parallelism import conv_policy, same_pads
-from .plan import IMPL_XLA, LayerPlan
-from .precision import mode_dot
+from .parallelism import conv_policy, conv_sequential, same_pads
+from .plan import IMPL_SEQUENTIAL, IMPL_XLA, LayerPlan
+from .precision import full_f32, mode_dot
 
 LayerOp = Callable[..., torch.Tensor]
 
@@ -177,6 +178,23 @@ def _dense_xla(layer, plan, params, x):
 @register_epilogue_impl("dense", IMPL_XLA)
 def _dense_xla_fused(layer, plan, params, x, epilogue):
     return torch.relu(_dense_xla_y(layer, plan, params, x))
+
+
+@register_conv_impl(IMPL_SEQUENTIAL)
+def _conv_sequential(layer, plan, params, x):
+    y = conv_sequential(x, params["w"], stride=layer.stride,
+                        padding=layer.padding)
+    return add_bias(y, layer, params)
+
+
+@register_dense_impl(IMPL_SEQUENTIAL)
+def _dense_sequential(layer, plan, params, x):
+    """Scalar baseline: one matvec column at a time, in f32."""
+    a2 = x.reshape(x.shape[0], -1).float()
+    wseq = params["w"].float()
+    with full_f32():
+        cols = [a2 @ wseq[:, j] for j in range(wseq.shape[1])]
+    return add_bias(torch.stack(cols, dim=1), layer, params)
 
 
 # ---------------------------------------------------------------------------

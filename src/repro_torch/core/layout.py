@@ -52,3 +52,36 @@ def weights_to_map_major(w: torch.Tensor, u: int = LANES) -> torch.Tensor:
     """OIHW (M, N, Kh, Kw) -> (M, N/u, Kh, Kw, u): the input-channel axis
     grouped, once, at synthesis time."""
     return to_map_major(w, u, channel_axis=1)
+
+
+# ---------------------------------------------------------------------------
+# Eqs. (3)-(5): the index maps of the zero-overhead dynamic reorder.
+#
+# Thread x in [0, alpha), alpha = M*Wout*Hout, computes output element
+# (m, h, w) and writes it at map-major position x: the flat map-major order
+# is row-major over (stack = M/u, h, w, lane = u).
+# ---------------------------------------------------------------------------
+
+def thread_to_whm(x, u: int, w_out: int, h_out: int):
+    """Paper Eqs. (3), (4), (5): flat thread id -> (w, h, m).  Integer
+    arithmetic only, so it takes Python ints or integer tensors."""
+    w = (x // u) % w_out                            # Eq. (3)
+    h = (x // (u * w_out)) % h_out                  # Eq. (4)
+    m = (x % u) + (x // (u * w_out * h_out)) * u    # Eq. (5)
+    return w, h, m
+
+
+def whm_to_thread(w, h, m, u: int, w_out: int, h_out: int):
+    """Inverse of Eqs. (3)-(5): (w, h, m) -> flat map-major thread id."""
+    stack, lane = m // u, m % u
+    return lane + w * u + h * (u * w_out) + stack * (u * w_out * h_out)
+
+
+def mapmajor_scatter_order(m_total: int, h_out: int, w_out: int,
+                           u: int) -> torch.Tensor:
+    """Permutation p with p[x] = the row-major (M, H, W) offset of thread
+    x's pixel: writing outputs in thread order is storing the (C/u, H, W, u)
+    array row-major, the paper's Fig. 7 layout."""
+    x = torch.arange(m_total * h_out * w_out, dtype=torch.int64)
+    w, h, m = thread_to_whm(x, u, w_out, h_out)
+    return (m * h_out + h) * w_out + w

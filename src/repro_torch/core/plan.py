@@ -16,7 +16,7 @@ from typing import (TYPE_CHECKING, Dict, Iterable, Iterator, List, Mapping,
 
 from ..device.profile import DEFAULT_PROFILE, DeviceProfile
 from .layout import LANES
-from .parallelism import NOT_PORTED, Parallelism
+from .parallelism import Parallelism
 from .precision import ComputeMode, QParams
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
@@ -26,9 +26,11 @@ if TYPE_CHECKING:  # pragma: no cover - typing only
 IMPL_XLA = "xla"                      # library conv / matmul (cuDNN, cuBLAS)
 IMPL_KERNEL = "cuda_mapmajor"         # the hand-written map-major kernels
 IMPL_DEFAULT = "default"              # structural layers
+IMPL_SEQUENTIAL = "sequential"        # paper Fig. 2 scalar baseline
 
 #: ``ExecutionPlan.uniform`` backends -> the impl of parametric layers.
-UNIFORM_BACKENDS = {"xla": IMPL_XLA, "mapmajor": IMPL_KERNEL}
+UNIFORM_BACKENDS = {"xla": IMPL_XLA, "mapmajor": IMPL_KERNEL,
+                    "sequential": IMPL_SEQUENTIAL}
 
 
 @dataclass(frozen=True)
@@ -78,7 +80,7 @@ class ExecutionPlan:
     """Per-layer plans for one network — Stage A's output artifact."""
     net_name: str
     layers: Dict[str, LayerPlan] = field(default_factory=dict)
-    origin: str = "planner"           # "planner" | "uniform"
+    origin: str = "planner"           # "planner" | "uniform" | "autotune"
     profile: DeviceProfile = DEFAULT_PROFILE
     graph: "Optional[GraphProgram]" = None
 
@@ -154,10 +156,9 @@ class ExecutionPlan:
                 u: int = LANES,
                 profile: DeviceProfile = DEFAULT_PROFILE) -> "ExecutionPlan":
         """Every parametric layer on one backend: ``"xla"`` (library conv
-        and matmul) or ``"mapmajor"`` (the hand-written kernels; a conv under
-        a non-OLP policy keeps the library path, as in the JAX package)."""
-        if backend == "sequential":
-            raise NotImplementedError(NOT_PORTED.format("the sequential baseline"))
+        and matmul), ``"mapmajor"`` (the hand-written kernels; a conv under
+        a non-OLP policy keeps the library path, as in the JAX package) or
+        ``"sequential"`` (the scalar loop-nest baseline)."""
         if backend not in UNIFORM_BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of "
                              f"{sorted(UNIFORM_BACKENDS)}")
@@ -170,7 +171,8 @@ class ExecutionPlan:
                 layers[layer.name] = LayerPlan(mode=mode)
                 continue
             impl = UNIFORM_BACKENDS[backend]
-            if layer.kind == "conv" and parallelism is not Parallelism.OLP:
+            if (impl == IMPL_KERNEL and layer.kind == "conv"
+                    and parallelism is not Parallelism.OLP):
                 impl = IMPL_XLA
             layers[layer.name] = LayerPlan(impl=impl, parallelism=parallelism,
                                            mode=mode, u=u, reason=why,

@@ -21,12 +21,17 @@ The counterpart of ``repro.core.planner``:
                        map-major kernels; the rest stay on the library path.
   Thread policy        OLP always.
 
-The measured ``autotune_plan`` and ``predict_group_seconds`` are later work.
+:func:`predict_group_seconds` turns the rule-3 cost of each fused group into
+a roofline latency (the "predicted" column of ``obs.measure_drift``), and
+:func:`autotune_plan` replaces the static guess with measurements: each
+parametric group is timed under every candidate implementation on its real
+input, as a captured CUDA graph on the card, and the fastest is kept.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 from ..device.profile import DEFAULT_PROFILE, DeviceProfile
 from .layout import LANES
@@ -110,10 +115,27 @@ def trace_shapes(net: NetworkDescription) -> Dict[str, Tuple[int, ...]]:
 class LayerCost:
     flops: float
     bytes: float
+    #: The device whose roofline turns counts into seconds.
+    profile: DeviceProfile = DEFAULT_PROFILE
+    #: The arithmetic the layer's mode runs ("bf16" or "int8").
+    dtype: str = "bf16"
 
     @property
     def arithmetic_intensity(self) -> float:
         return self.flops / max(self.bytes, 1.0)
+
+    @property
+    def compute_seconds(self) -> float:
+        return self.flops / self.profile.peak_flops(self.dtype)
+
+    @property
+    def memory_seconds(self) -> float:
+        return self.bytes / self.profile.hbm_bandwidth
+
+    @property
+    def dominant(self) -> str:
+        return ("compute" if self.compute_seconds >= self.memory_seconds
+                else "memory")
 
 
 def mode_cost_dtype(mode: ComputeMode) -> str:
@@ -125,20 +147,23 @@ def _mode_bytes_per_el(mode: ComputeMode) -> int:
 
 
 def conv_cost(cin: int, h: int, w: int, layer: Layer, batch: int,
-              bytes_per_el: int = 2) -> LayerCost:
+              bytes_per_el: int = 2, profile: DeviceProfile = DEFAULT_PROFILE,
+              dtype: str = "bf16") -> LayerCost:
     ho = _spatial_out(h, layer.kernel, layer.stride, layer.padding)
     wo = _spatial_out(w, layer.kernel, layer.stride, layer.padding)
     m, k = layer.out_channels, layer.kernel
     flops = 2.0 * batch * cin * k * k * m * ho * wo
     byts = bytes_per_el * (batch * cin * h * w + m * cin * k * k
                            + batch * m * ho * wo)
-    return LayerCost(flops, byts)
+    return LayerCost(flops, byts, profile, dtype)
 
 
-def dense_cost(k: int, n: int, batch: int, bytes_per_el: int = 2) -> LayerCost:
+def dense_cost(k: int, n: int, batch: int, bytes_per_el: int = 2,
+               profile: DeviceProfile = DEFAULT_PROFILE,
+               dtype: str = "bf16") -> LayerCost:
     flops = 2.0 * batch * k * n
     byts = bytes_per_el * (batch * k + k * n + batch * n)
-    return LayerCost(flops, byts)
+    return LayerCost(flops, byts, profile, dtype)
 
 
 def _pow2_at_least(n: int) -> int:
@@ -161,7 +186,8 @@ def fused_cost(cost: LayerCost, out_elements: float,
     """A fused group's cost: the epilogue's FLOPs at no added bytes."""
     if epilogue_ops <= 0:
         return cost
-    return LayerCost(cost.flops + epilogue_ops * out_elements, cost.bytes)
+    return LayerCost(cost.flops + epilogue_ops * out_elements, cost.bytes,
+                     cost.profile, cost.dtype)
 
 
 NO_KERNELS = "rule3: no CUDA kernels on this host (plain versions only)"
@@ -171,7 +197,8 @@ def _plan_conv(layer: Layer, cin: int, h: int, w: int, cfg: PlannerConfig,
                mode: ComputeMode, epilogue_ops: int = 0) -> LayerPlan:
     cost_dtype = mode_cost_dtype(mode)
     cost = conv_cost(cin, h, w, layer, cfg.batch,
-                     bytes_per_el=_mode_bytes_per_el(mode))
+                     bytes_per_el=_mode_bytes_per_el(mode),
+                     profile=cfg.profile, dtype=cost_dtype)
     ho = _spatial_out(h, layer.kernel, layer.stride, layer.padding)
     wo = _spatial_out(w, layer.kernel, layer.stride, layer.padding)
     cost = fused_cost(cost, cfg.batch * layer.out_channels * ho * wo,
@@ -210,7 +237,8 @@ def _plan_conv(layer: Layer, cin: int, h: int, w: int, cfg: PlannerConfig,
 def _plan_dense(layer: Layer, in_features: int, cfg: PlannerConfig,
                 mode: ComputeMode, epilogue_ops: int = 0) -> LayerPlan:
     cost = dense_cost(in_features, layer.out_channels, cfg.batch,
-                      bytes_per_el=_mode_bytes_per_el(mode))
+                      bytes_per_el=_mode_bytes_per_el(mode),
+                      profile=cfg.profile, dtype=mode_cost_dtype(mode))
     cost = fused_cost(cost, cfg.batch * layer.out_channels, epilogue_ops)
     u = _choose_u(in_features, layer.out_channels, cfg)
     fused_note = f" [fused+{epilogue_ops} epilogue]" if epilogue_ops else ""
@@ -266,3 +294,125 @@ def plan_network(net: NetworkDescription, *,
             layers[l.name] = LayerPlan(mode=mode, reason="structural")
     return ExecutionPlan(net.name, layers, origin="planner",
                          profile=cfg.profile, graph=graph)
+
+
+# ---------------------------------------------------------------------------
+# Roofline predictions per dispatch group (the "predicted" side of drift)
+# ---------------------------------------------------------------------------
+
+def predict_group_seconds(net: NetworkDescription, plan: ExecutionPlan, *,
+                          batch: int = 1) -> Dict[str, float]:
+    """Predicted roofline latency per parametric dispatch group, in seconds.
+
+    ``max(compute_seconds, memory_seconds)`` of the :class:`LayerCost` rule
+    3 routed on: the fused group's cost when the plan carries a graph
+    (epilogue FLOPs at no added bytes), under the layer's planned mode and
+    the plan's device profile.  Keys are group (anchor) names; structural
+    groups carry no prediction."""
+    shapes = trace_shapes(net)
+    profile = plan.profile
+    if plan.graph is not None:
+        units = [(g.name, g.anchor, len(g.epilogue))
+                 for g in plan.graph.groups]
+    else:
+        units = [(l.name, l, 0) for l in net.layers]
+    out: Dict[str, float] = {}
+    for name, anchor, n_epilogue in units:
+        if anchor.kind not in ("conv", "dense"):
+            continue
+        lp = plan.for_layer(name)
+        dtype = mode_cost_dtype(lp.mode)
+        bpe = _mode_bytes_per_el(lp.mode)
+        if anchor.kind == "conv":
+            cin, h, w = shapes[anchor.inputs[0]]
+            cost = conv_cost(cin, h, w, anchor, batch, bytes_per_el=bpe,
+                             profile=profile, dtype=dtype)
+            ho = _spatial_out(h, anchor.kernel, anchor.stride, anchor.padding)
+            wo = _spatial_out(w, anchor.kernel, anchor.stride, anchor.padding)
+            cost = fused_cost(cost, batch * anchor.out_channels * ho * wo,
+                              n_epilogue)
+        else:
+            in_features = 1
+            for d in shapes[anchor.inputs[0]]:
+                in_features *= d
+            cost = dense_cost(in_features, anchor.out_channels, batch,
+                              bytes_per_el=bpe, profile=profile, dtype=dtype)
+            cost = fused_cost(cost, batch * anchor.out_channels, n_epilogue)
+        out[name] = max(cost.compute_seconds, cost.memory_seconds)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Measured autotune pass
+# ---------------------------------------------------------------------------
+
+def autotune_plan(net: NetworkDescription, params, x, plan: ExecutionPlan, *,
+                  candidates: Sequence[str] = (IMPL_XLA, IMPL_KERNEL),
+                  reps: int = 3) -> ExecutionPlan:
+    """Refine a plan with measurements on real activations.
+
+    Runs the planned network once, capturing every parametric layer's input,
+    then times each candidate implementation on it and keeps the fastest.
+    Timings are taken under each layer's current plan mode (the synthesizer
+    calls this inside its fixed-point loop, so the last round times the
+    shipped modes).  The kernel candidate is dropped for PRECISE layers (the
+    kernels are inexact-only) and for convs whose shared-memory request the
+    profile's budget refuses (rule 1).
+
+    Under a graph plan each candidate is timed on the fused group
+    (``apply_group``, epilogue included), the unit the executor dispatches.
+    On the card the unit is a captured CUDA graph, timed by its replays
+    (:func:`~repro_torch.core.capture.time_dispatch`); off it, eager calls.
+    Every candidate left after those two checks runs: a kernel that fails
+    to build, launch or be captured raises, and nothing gives way to the
+    library.  The chosen plan's reason says how many were timed.
+    """
+    from ..kernels.conv_mapmajor.ops import fits_vmem
+    from .capture import time_dispatch
+    from .layer_ops import apply_group, apply_layer
+    from .network import collect_activations
+    from .plan import GroupPlan
+
+    groups = {g.name: g for g in plan.graph.groups} \
+        if plan.graph is not None else {}
+    acts = collect_activations(net, params, x, plan=plan)
+    tuned = dict(plan.layers)
+    for l in net.layers:
+        if not l.has_params:
+            continue
+        base = plan.for_layer(l.name)
+        x_in = acts[l.inputs[0]]
+        layer_candidates = list(candidates)
+        if base.mode is ComputeMode.PRECISE and IMPL_KERNEL in layer_candidates:
+            layer_candidates.remove(IMPL_KERNEL)
+        if (l.kind == "conv" and IMPL_KERNEL in layer_candidates
+                and not fits_vmem(l.kernel, l.stride, base.u, base.mode,
+                                  budget=plan.profile.vmem_budget)):
+            layer_candidates.remove(IMPL_KERNEL)
+        group = groups.get(l.name)
+        timings: List[Tuple[float, str]] = []
+        for impl in layer_candidates:
+            cand = LayerPlan(impl=impl, parallelism=base.parallelism,
+                             mode=base.mode, u=base.u,
+                             vmem_budget=base.vmem_budget,
+                             qparams=base.qparams)
+            if group is not None:
+                gp = GroupPlan(name=group.name, members=group.signature(),
+                               plan=cand)
+
+                def run(a, g=group, gp=gp):
+                    return apply_group(g, gp, params, [a])
+            else:
+                def run(a, l=l, cand=cand):
+                    return apply_layer(l, cand, params.get(l.name), [a])
+            timings.append((time_dispatch(run, (x_in,), reps,
+                                          time.perf_counter), impl))
+        if not timings:
+            continue
+        t_best, impl_best = min(timings)
+        tuned[l.name] = LayerPlan(
+            impl=impl_best, parallelism=base.parallelism, mode=base.mode,
+            u=base.u, vmem_budget=base.vmem_budget, qparams=base.qparams,
+            reason=f"autotune: {t_best * 1e6:.0f}us best of {len(timings)}")
+    return ExecutionPlan(net.name, tuned, origin="autotune",
+                         profile=plan.profile, graph=plan.graph)

@@ -24,8 +24,10 @@ attached to exactly the IMPRECISE_INT8 layers after every re-plan; without
 images those layers keep the dequant path.
 
 ``tracer=`` and ``registry=`` record the reference's ``synthesis.*`` spans
-and ``synthesis_*`` counters.  Not ported yet (ROADMAP.md queue 1):
-``artifact_store=``, ``autotune=`` and ``autotune_input=``.
+and ``synthesis_*`` counters.  ``autotune=True`` refines the plan with
+measured group timings (:func:`~repro_torch.core.planner.autotune_plan`)
+inside the fixed-point loop, so the last round is timed under the shipped
+modes.  Not ported yet (ROADMAP.md queue 1): ``artifact_store=``.
 """
 from __future__ import annotations
 
@@ -38,8 +40,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..device.profile import DeviceProfile, resolve_profile
+from ..device.calibrate import resolve_profile
+from ..device.profile import DeviceProfile
 from ..obs import MetricsRegistry, Tracer
+from .capture import capture_graph
 from .graph import lower_network
 from .layout import LANES
 from .mode_selector import ModeSelectionReport, refine_plan
@@ -47,7 +51,7 @@ from .network import NetworkDescription, collect_activations, run_network
 from .parallelism import Parallelism
 from .plan import (ExecutionPlan, IterationRecord, SynthesisReport,
                    ValidationRecord, enforce_precise_xla)
-from .planner import PlannerConfig, plan_network
+from .planner import PlannerConfig, autotune_plan, plan_network
 from .precision import (MODES_FASTEST_FIRST, ComputeMode, QParams,
                         QuantizedTensor, calibrate_act_scale, prepare_weight,
                         weight_channel_axis)
@@ -56,12 +60,6 @@ MAX_SYNTHESIS_ITERATIONS = 4
 
 #: Float slack for the validation gate's degradation comparison.
 _GATE_EPS = 1e-9
-
-
-#: One CUDA graph capture at a time in the process (a capture must not
-#: overlap another one); the program cache builds distinct buckets from
-#: several threads at once.
-_CAPTURE_LOCK = threading.Lock()
 
 
 @dataclass
@@ -128,6 +126,10 @@ class SynthesizedProgram:
     vector_width: int = LANES
     input_dtype: torch.dtype = torch.float32
     stage_d_compiles: int = 0
+    #: Cost-model drift (:class:`repro_torch.obs.drift.DriftReport`),
+    #: attached by :func:`repro_torch.obs.measure_drift`; printed by
+    #: :meth:`report`.
+    drift: Optional[object] = field(default=None, repr=False)
     _params_digest: Optional[str] = field(default=None, repr=False)
 
     @property
@@ -186,29 +188,12 @@ class SynthesizedProgram:
                                 plan_fingerprint=self.plan.fingerprint(),
                                 compile_seconds=time.perf_counter() - t0,
                                 _forward=self.infer)
-        with _CAPTURE_LOCK:
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                self.infer(static_in)
-                torch.cuda.synchronize(dev)
-                reserved = torch.cuda.memory_reserved(dev)
-                graph = torch.cuda.CUDAGraph()
-                try:
-                    # thread_local: other replicas' threads may synchronize
-                    # or replay while this one captures.
-                    graph.capture_begin(capture_error_mode="thread_local")
-                    try:
-                        static_out = self.infer(static_in)
-                    finally:
-                        graph.capture_end()
-                except RuntimeError as e:
-                    raise RuntimeError(
-                        f"Stage D: CUDA graph capture of {self.net.name} at "
-                        f"{shape} failed; the forward pass must not "
-                        f"synchronize with or copy from the host: {e}") from e
-                torch.cuda.synchronize(dev)
-                graph_bytes = torch.cuda.memory_reserved(dev) - reserved
+        try:
+            graph, static_out, graph_bytes = capture_graph(self.infer,
+                                                           (static_in,))
+        except RuntimeError as e:
+            raise RuntimeError(f"Stage D of {self.net.name} at {shape}: {e}") \
+                from e
         self.stage_d_compiles += 1
         return BatchProgram(batch=batch, input_shape=shape,
                             plan_fingerprint=self.plan.fingerprint(),
@@ -249,6 +234,8 @@ class SynthesizedProgram:
         if self.plan.graph is not None:
             lines.append("fusion:")
             lines.append("  " + self.plan.graph.report().replace("\n", "\n  "))
+        if self.drift is not None:
+            lines.append(self.drift.table())    # carries its own header
         return "\n".join(lines)
 
 
@@ -335,6 +322,16 @@ def _prepare_params(net: NetworkDescription, params,
     return prepared
 
 
+def _autotune(net: NetworkDescription, params, x,
+              plan: ExecutionPlan) -> ExecutionPlan:
+    """:func:`autotune_plan` on the weights Stage B prepares under the plan's
+    modes, so an IMPRECISE_INT8 layer with qparams is timed on the int8
+    kernels it would ship on.  (The reference hands the float weights over,
+    which times its int8 layers on the dequantizing path.)"""
+    modes = {l.name: plan.for_layer(l.name).mode for l in net.param_layers}
+    return autotune_plan(net, _prepare_params(net, params, modes), x, plan)
+
+
 def _program_accuracy(program: "SynthesizedProgram", images, labels) -> float:
     """Top-1 accuracy of the emitted program (``program.infer``)."""
     return _top1(program.infer(images), labels)
@@ -370,6 +367,8 @@ def synthesize(net: NetworkDescription,
                max_iterations: int = MAX_SYNTHESIS_ITERATIONS,
                forced_mode: Optional[ComputeMode] = None,
                fuse: bool = True,
+               autotune: bool = False,
+               autotune_input: Optional[torch.Tensor] = None,
                tracer: Optional[Tracer] = None,
                registry: Optional[MetricsRegistry] = None
                ) -> SynthesizedProgram:
@@ -384,7 +383,9 @@ def synthesize(net: NetworkDescription,
     program against ``max_degradation``; ``allow_int8`` lets Stage C try
     IMPRECISE_INT8.  The validation images also calibrate the int8
     activation scales.  ``fuse`` lowers through the graph passes first (one
-    dispatch per fused group).
+    dispatch per fused group).  ``autotune=True`` refines the plan with
+    per-group measurements on ``autotune_input`` (or the validation images);
+    without a validation set those images also calibrate int8.
 
     ``tracer=`` records the pipeline as the reference's nested
     ``synthesis.*`` spans (Stage-A planning, each fixed-point iteration
@@ -429,12 +430,19 @@ def synthesize(net: NetworkDescription,
         with _t.span("synthesis.stage_a_plan", net=net.name, fuse=fuse):
             graph = lower_network(net) if fuse else None
             plan = plan_network(net, config=planner_config, graph=graph)
+    tune_x = None
+    if autotune:
+        tune_x = autotune_input if autotune_input is not None else \
+            (validation[0] if validation is not None else None)
+        if tune_x is None:
+            raise ValueError("autotune=True needs autotune_input= or a "
+                             "validation set")
 
     # Int8 calibration, once, up front, when IMPRECISE_INT8 can ship.
     wants_int8 = (allow_int8 or forced_mode is ComputeMode.IMPRECISE_INT8
                   or any(lp.mode is ComputeMode.IMPRECISE_INT8
                          for lp in plan.layers.values()))
-    calib_x = validation[0] if validation is not None else None
+    calib_x = validation[0] if validation is not None else autotune_input
     act_qparams: Optional[Dict[str, QParams]] = None
     if wants_int8 and calib_x is not None:
         act_qparams = calibrate_activation_qparams(net, params, calib_x)
@@ -444,6 +452,9 @@ def synthesize(net: NetworkDescription,
                  for n in net.inexactable_layers}
         plan = _attach_qparams(_replan(net, plan, modes, planner_config),
                                act_qparams)
+        if autotune:
+            with _t.span("synthesis.autotune", net=net.name):
+                plan = _autotune(net, params, tune_x, plan)
         synthesis_report = SynthesisReport(
             converged=True, max_iterations=max_iterations,
             gate_skipped_reason=("forced_mode pins Stage C"
@@ -477,6 +488,9 @@ def synthesize(net: NetworkDescription,
         with _t.span("synthesis.iteration", index=i) as it_span:
             _count("synthesis_iterations_total", 1,
                    "Fixed-point plan/probe rounds")
+            if autotune:
+                with _t.span("synthesis.autotune", index=i):
+                    current = _autotune(net, params, tune_x, current)
             # The all-PRECISE reference holds while the plan it would run under
             # is unchanged.
             ref_fp = current.with_modes(precise_modes).fingerprint()
@@ -504,9 +518,15 @@ def synthesize(net: NetworkDescription,
 
             # Fixed point: re-planning changed nothing vs what Stage C measured,
             # or the (fingerprint, modes) pair repeats the previous round.
+            # With autotune only the second counts: _replan overlays an
+            # autotuned plan, so the first always holds, and a repeat means
+            # the pair survived a re-autotune under the shipped modes.
             prev_key = (states[-2][0].fingerprint(), _modes_key(states[-2][1])) \
                 if len(states) >= 2 else None
-            if next_plan.fingerprint() == probed.fingerprint() or key == prev_key:
+            at_fixed_point = key == prev_key if autotune else (
+                next_plan.fingerprint() == probed.fingerprint()
+                or key == prev_key)
+            if at_fixed_point:
                 synthesis_report.converged = True
                 current, mode_report = next_plan, report
                 break

@@ -21,7 +21,11 @@ On Hopper the fields mean:
 
 Builtins: ``h100`` (H100 SXM data-sheet peaks, the default) and ``cpu``
 (no kernels; the wrappers take their plain versions there).  Measured
-profiles (calibration) are later work.
+profiles come from :mod:`repro_torch.device.calibrate`.
+
+Validate a profile JSON from the command line:
+
+    PYTHONPATH=src python -m repro_torch.device.profile profile.json
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ import dataclasses
 import hashlib
 import json
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 PROFILE_SCHEMA_VERSION = 1
 
@@ -60,7 +64,7 @@ class DeviceProfile:
     link_bandwidth: float = 0.0
     #: Whether the hand-written CUDA kernels compile on this target.
     supports_pallas: bool = True
-    #: "builtin" | "file" — provenance, not identity.
+    #: "builtin" | "calibrated" | "file" — provenance, not identity.
     source: str = "builtin"
     description: str = ""
 
@@ -141,6 +145,17 @@ class DeviceProfile:
                 raise ProfileSchemaError(f"{path}: not valid JSON ({e})") from None
         return cls.from_json_dict(doc)
 
+    def summary(self) -> str:
+        return (f"{self.name} [{self.source}]: "
+                f"bf16 {self.peak_flops_bf16 / 1e12:.1f} TFLOP/s, "
+                f"f32 {self.peak_flops_f32 / 1e12:.1f} TFLOP/s, "
+                f"int8 {self.peak_flops_int8 / 1e12:.1f} TOP/s, "
+                f"HBM {self.hbm_bandwidth / 1e9:.0f} GB/s, "
+                f"ridge {self.ridge():.0f} FLOPs/B, "
+                f"smem block {self.vmem_budget} B, "
+                f"u<= {self.lane_width}, "
+                f"kernels={'yes' if self.supports_pallas else 'plain-only'}")
+
 
 #: NVIDIA H100 SXM, data-sheet dense peaks at the 700 W limit.
 H100 = DeviceProfile(
@@ -168,7 +183,21 @@ CPU = DeviceProfile(
 
 DEFAULT_PROFILE = H100
 
-_REGISTRY: Dict[str, DeviceProfile] = {p.name: p for p in (H100, CPU)}
+_REGISTRY: Dict[str, DeviceProfile] = {}
+
+
+def register_profile(profile: DeviceProfile, *,
+                     allow_replace: bool = False) -> DeviceProfile:
+    """Add a profile to the registry (e.g. a calibrated measurement)."""
+    if profile.name in _REGISTRY and not allow_replace:
+        raise ValueError(f"profile {profile.name!r} already registered; "
+                         "pass allow_replace=True to overwrite")
+    _REGISTRY[profile.name] = profile
+    return profile
+
+
+for _p in (H100, CPU):
+    register_profile(_p)
 
 
 def get_profile(name: str) -> DeviceProfile:
@@ -179,15 +208,9 @@ def get_profile(name: str) -> DeviceProfile:
                        f"{', '.join(sorted(_REGISTRY))}") from None
 
 
-def resolve_profile(device: "str | DeviceProfile | None" = None) -> DeviceProfile:
-    """A profile passes through; a name is looked up; ``None``/``"auto"``
-    means this host: ``h100`` where CUDA is available, else ``cpu``."""
-    if isinstance(device, DeviceProfile):
-        return device
-    if device is not None and device != "auto":
-        return get_profile(device)
-    import torch
-    return H100 if torch.cuda.is_available() else CPU
+def registered_profiles() -> Tuple[DeviceProfile, ...]:
+    """All registered profiles, sorted by name."""
+    return tuple(_REGISTRY[n] for n in sorted(_REGISTRY))
 
 
 def torch_device(device: "str | None" = "cuda"):
@@ -200,3 +223,24 @@ def torch_device(device: "str | None" = "cuda"):
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "on the CPU (the kernels' plain versions)")
     return dev
+
+
+def main(argv) -> int:
+    """Validate profile JSON files: round-trip each and print a summary."""
+    if not argv:
+        print("usage: python -m repro_torch.device.profile PROFILE.json [...]")
+        return 2
+    bad = 0
+    for path in argv:
+        try:
+            p = DeviceProfile.load(path)
+            print(f"{path}: ok — {p.summary()}")
+        except (OSError, ProfileSchemaError, ValueError, TypeError) as e:
+            print(f"{path}: INVALID — {e}")
+            bad += 1
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(main(sys.argv[1:]))

@@ -10,11 +10,11 @@ the Prometheus text and the JSON snapshot are the reference's:
 * :mod:`~repro_torch.obs.trace`   — nested :class:`Tracer` spans over
   synthesis Stages A–D and the serving hot path, JSONL-exportable;
 * :mod:`~repro_torch.obs.export`  — Prometheus text exposition + JSON
-  snapshot + CLI table renderers.
-
-Cost-model drift (the reference's ``obs/drift.py``: ``GroupDrift``,
-``DriftReport``, ``measure_drift``) is not ported yet; asking for those
-names raises ``AttributeError`` that says so.
+  snapshot + CLI table renderers;
+* :mod:`~repro_torch.obs.drift`   — cost-model drift: the planner's roofline
+  prediction per dispatch group against its measured latency (imported
+  lazily: it pulls in ``repro_torch.core``, which the telemetry pieces
+  must not).
 """
 from __future__ import annotations
 
@@ -30,14 +30,14 @@ __all__ = [
     "Span", "Tracer",
     "to_prometheus", "parse_prometheus", "render_table",
     "snapshot_document", "write_metrics_json", "write_trace_jsonl",
+    "GroupDrift", "DriftReport", "measure_drift",
 ]
 
-_UNPORTED_DRIFT = {"GroupDrift", "DriftReport", "measure_drift"}
+_LAZY_DRIFT = {"GroupDrift", "DriftReport", "measure_drift"}
 
 
 def __getattr__(name: str):
-    if name in _UNPORTED_DRIFT:
-        raise AttributeError(
-            f"repro_torch.obs.{name} is not ported yet: cost-model drift "
-            "(obs/drift.py) is ROADMAP.md queue 1, item 9")
+    if name in _LAZY_DRIFT:
+        from . import drift
+        return getattr(drift, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

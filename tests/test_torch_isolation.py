@@ -6,6 +6,8 @@ import pkgutil
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
 
@@ -66,3 +68,23 @@ def test_port_sources_name_no_jax_import():
             for n in names:
                 root = n.split(".")[0]
                 assert root not in ("jax", "jaxlib", "repro"), (path, n)
+
+
+SUBPACKAGES = sorted(
+    name for name in os.listdir(os.path.join(SRC, "repro_torch"))
+    if os.path.isfile(os.path.join(SRC, "repro_torch", name, "__init__.py")))
+
+
+def test_subpackages_are_found():
+    assert {"core", "device", "obs"} <= set(SUBPACKAGES)
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_each_subpackage_imports_first(sub):
+    """A user may import any subpackage before the others: each one, alone
+    in a fresh interpreter, imports without an import cycle."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", f"import repro_torch.{sub}"],
+                         env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr

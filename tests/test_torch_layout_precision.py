@@ -107,8 +107,13 @@ def test_profiles_round_trip_and_identity(tmp_path):
     assert round(H100.ridge()) == 295
     assert not CPU.supports_pallas
     assert resolve_profile("h100") is H100 and resolve_profile(CPU) is CPU
+    # "auto" without a cached or fresh calibration is the builtin for this
+    # backend (the calibrating case is in test_torch_calibrate.py).
     expected = H100 if torch.cuda.is_available() else CPU
-    assert resolve_profile("auto") is expected
+    assert resolve_profile("auto", use_cache=False,
+                           allow_calibration=False) is expected
+    if not torch.cuda.is_available():
+        assert resolve_profile("auto", use_cache=False) is CPU
     with pytest.raises(KeyError):
         resolve_profile("tpu_v5e")
 

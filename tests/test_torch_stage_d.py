@@ -241,3 +241,40 @@ def test_eviction_frees_the_graph(cuda):
     assert ref() is None
     assert held - torch.cuda.memory_reserved() >= graph_bytes
     assert torch.isfinite(y).all()                     # the clone survives
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [ComputeMode.RELAXED, ComputeMode.IMPRECISE_INT8],
+                         ids=lambda m: m.value)
+def test_timed_group_is_one_capture_then_replays(cuda, mode):
+    """The timed dispatch unit of autotune and drift reuses Stage D's
+    capture: one warm-up and one capture call the group's kernel wrapper
+    (twice in all), each rep is one replay between two clock reads, and the
+    replay's output is the eager group's bit for bit."""
+    from repro_torch.core import apply_group, collect_activations
+    from repro_torch.core.capture import capture_graph, time_dispatch
+    prog = _program(mode)
+    group = next(g for g in prog.plan.graph.groups if g.name == "conv3")
+    assert prog.plan.for_layer("conv3").impl == IMPL_KERNEL
+    x = _images(8, 7)
+    acts = collect_activations(prog.net, prog.prepared, x, plan=prog.plan)
+    ins = [acts[i] for i in group.inputs]
+
+    def run(*a):
+        return apply_group(group, prog.plan.for_group(group), prog.prepared, list(a))
+
+    ticks = []
+
+    def clock():
+        ticks.append(1)
+        return len(ticks) * 1e-3
+
+    before = _counts()
+    seconds = time_dispatch(run, ins, 5, clock)
+    after = _counts()
+    assert len(ticks) == 10 and seconds == pytest.approx(1e-3)
+    assert sum(after.values()) - sum(before.values()) == 2
+    graph, out, graph_bytes = capture_graph(run, ins)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert graph_bytes >= 0 and torch.equal(out, run(*ins))
