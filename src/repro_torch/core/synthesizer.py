@@ -27,7 +27,9 @@ images those layers keep the dequant path.
 and ``synthesis_*`` counters.  ``autotune=True`` refines the plan with
 measured group timings (:func:`~repro_torch.core.planner.autotune_plan`)
 inside the fixed-point loop, so the last round is timed under the shipped
-modes.  Not ported yet (ROADMAP.md queue 1): ``artifact_store=``.
+modes.  ``artifact_store=`` (a :class:`~repro_torch.artifacts.ArtifactStore`)
+hydrates the converged program of an earlier identical request, with zero
+fixed-point iterations, and persists a new one.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ import hashlib
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -55,6 +57,9 @@ from .planner import PlannerConfig, autotune_plan, plan_network
 from .precision import (MODES_FASTEST_FIRST, ComputeMode, QParams,
                         QuantizedTensor, calibrate_act_scale, prepare_weight,
                         weight_channel_axis)
+
+if TYPE_CHECKING:  # pragma: no cover - typing only
+    from ..artifacts.store import ArtifactStore
 
 MAX_SYNTHESIS_ITERATIONS = 4
 
@@ -370,7 +375,8 @@ def synthesize(net: NetworkDescription,
                autotune: bool = False,
                autotune_input: Optional[torch.Tensor] = None,
                tracer: Optional[Tracer] = None,
-               registry: Optional[MetricsRegistry] = None
+               registry: Optional[MetricsRegistry] = None,
+               artifact_store: "Optional[ArtifactStore]" = None
                ) -> SynthesizedProgram:
     """Run the pipeline and return the synthesized program.
 
@@ -392,6 +398,16 @@ def synthesize(net: NetworkDescription,
     with its Stage-C probe, the validation gate and its demotion events);
     ``registry=`` accumulates the ``synthesis_*`` counters.  Both default
     to off.
+
+    ``artifact_store=`` makes synthesis restartable.  Once the device has
+    resolved, the store is asked under a request key that covers every input
+    that determines the result (the network, the raw params, the validation
+    set, the device identity, every :class:`PlannerConfig` field,
+    ``autotune_input`` and the loop's knobs).  A hit returns the converged
+    program, its prepared weights on the params' device and its validated
+    report restored, before Stage A: zero fixed-point iterations.  A miss
+    persists the converged program; a failed write never fails synthesis.
+    Bypassed when ``plan=`` is given, as in the reference.
     """
     t0 = time.perf_counter()
     if max_iterations < 1:
@@ -424,6 +440,36 @@ def synthesize(net: NetworkDescription,
             f"plan= was drawn for device {plan.profile.name!r} but "
             f"planner_config= targets {planner_config.profile.name!r}; "
             "align the two profiles or re-plan for the target")
+
+    # The store is asked once the device has resolved (``device="auto"``
+    # calibrates first), so the profile's identity enters the key.
+    store_request_key: Optional[str] = None
+    if artifact_store is not None and plan is None:
+        from ..artifacts.store import synthesis_request_key
+        params_device = next(iter(params.values()))["w"].device
+        key_config = planner_config or PlannerConfig()
+        store_request_key = synthesis_request_key(
+            net, params, validation=validation,
+            device_identity=key_config.profile.identity(),
+            max_degradation=max_degradation, allow_int8=allow_int8,
+            forced_mode=forced_mode, fuse=fuse, autotune=autotune,
+            max_iterations=max_iterations, planner_config=key_config,
+            autotune_input=autotune_input)
+        cached = artifact_store.load_program_for(store_request_key,
+                                                 device=params_device)
+        if cached is not None:
+            _t.event("synthesis.artifact_hit", net=net.name,
+                     fingerprint=cached.fingerprint())
+            return cached
+
+    def _store_put(program: SynthesizedProgram) -> None:
+        if store_request_key is None:
+            return
+        try:
+            artifact_store.put_program(program, request_key=store_request_key)
+        except OSError as e:           # an unwritable store never fails it
+            _t.event("synthesis.artifact_put_failed", net=net.name,
+                     error=str(e))
 
     # Stage A.
     if plan is None:
@@ -469,6 +515,7 @@ def synthesize(net: NetworkDescription,
             prepared=_prepare_params(net, params, modes))
         _count("synthesis_seconds_total", program.synthesis_seconds,
                "Wall seconds spent inside synthesize()")
+        _store_put(program)
         return program
 
     # ---- Fixed-point loop: plan -> mode probe -> re-plan -> re-probe ------
@@ -608,4 +655,5 @@ def synthesize(net: NetworkDescription,
     program.synthesis_seconds = time.perf_counter() - t0
     _count("synthesis_seconds_total", program.synthesis_seconds,
            "Wall seconds spent inside synthesize()")
+    _store_put(program)
     return program

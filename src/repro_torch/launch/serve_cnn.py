@@ -17,14 +17,18 @@ and a metrics snapshot rendered from the tier's registry
 (``repro_torch.obs``).  ``--metrics-out``/``--trace-out`` export the
 snapshot (JSON) and the trace spans (JSONL).
 
-``--artifact-dir`` is accepted for the reference's command line but the
-port has no artifact store yet (ROADMAP.md queue 1, item 10): any value
-raises ``NotImplementedError`` before synthesis starts.
+``--artifact-dir PATH`` attaches a persistent
+:class:`~repro_torch.artifacts.ArtifactStore` (DESIGN.md §13): the first
+launch synthesizes cold and persists the program; a later launch against the
+same directory hydrates it (zero synthesis iterations) and says so.  Stage D
+is captured again in every process (the port serializes no CUDA graph), and
+the ``artifact_*`` counters appear in the snapshot beside the cache's.
 """
 from __future__ import annotations
 
 import argparse
 
+from repro_torch.artifacts import ArtifactStore
 from repro_torch.cnn import WORKLOADS, init_network_params
 from repro_torch.core import ComputeMode, synthesize
 from repro_torch.obs import (MetricsRegistry, Tracer, render_table,
@@ -53,7 +57,8 @@ def main(argv=None):
     ap.add_argument("--mode", default="relaxed",
                     choices=[m.value for m in ComputeMode])
     ap.add_argument("--artifact-dir", default=None, metavar="PATH",
-                    help="persistent artifact store (not ported yet: raises)")
+                    help="persistent artifact store: synthesize cold once, "
+                         "start warm after that")
     ap.add_argument("--device", default="cuda",
                     help="torch device the program runs on (cuda or cpu)")
     ap.add_argument("--seed", type=int, default=0)
@@ -75,10 +80,20 @@ def main(argv=None):
     print(f"synthesizing {net.name} ({len(net.layers)} layers)...")
     registry = MetricsRegistry()
     tracer = Tracer(clock=registry.clock)
+    store = None
+    if args.artifact_dir:
+        store = ArtifactStore(args.artifact_dir, registry=registry,
+                              tracer=tracer)
     program = synthesize(net, params, forced_mode=ComputeMode(args.mode),
-                         registry=registry, tracer=tracer)
-    print(f"  stages A-C in {program.synthesis_seconds:.2f}s, "
-          f"program {program.fingerprint()}")
+                         registry=registry, tracer=tracer,
+                         artifact_store=store)
+    if store is not None and store.hits:
+        print(f"  program hydrated from {args.artifact_dir} "
+              "(zero synthesis iterations), "
+              f"program {program.fingerprint()}")
+    else:
+        print(f"  stages A-C in {program.synthesis_seconds:.2f}s, "
+              f"program {program.fingerprint()}")
 
     report = run_offered_load(program, requests=args.requests,
                               rate=args.rate, config=config, seed=args.seed,
@@ -96,6 +111,13 @@ def main(argv=None):
           f"stolen {tier['stolen_requests']}  peak depth {tier['peak_depth']}")
     warm = ", ".join(f"r{i}={s:.2f}s" for i, s in enumerate(report.warm_seconds))
     print(f"cold start (warm-up): {warm}")
+    if store is not None:
+        print(f"warm start: program hydrated from {args.artifact_dir} "
+              "(zero synthesis iterations); "
+              f"{report.cache_stats['stage_d_compiles']} Stage-D build(s) "
+              "made again (plan-only)" if store.hits else
+              f"cold start: program persisted to {args.artifact_dir} "
+              "(next launch starts warm)")
     print("\nmetrics snapshot:")
     print(render_table(report.registry))
 

@@ -1,0 +1,79 @@
+"""Shared transformer building blocks: norms, rope, embeddings, MLP.
+
+The port of ``repro.nn.layers``.  Everything is functional (params are plain
+dicts of tensors).  Every product goes through
+:func:`repro_torch.core.precision.mode_dot`, which threads the layer's
+compute mode into the projection and rounds its result to ``mode.out_dtype``
+as the reference does.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..core.precision import ComputeMode, mode_dot
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in f32 with a ``1 + scale`` gain (zero-initialized scales
+    are the identity), back in ``x``'s dtype."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, half-split, with f32 angles.  x: (..., S, H, hd);
+    positions: (S,) or (B, S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    # theta stays a Python number: a tensor made from it on the card would
+    # be a host-to-device copy, which waits for the stream.
+    freqs = torch.pow(theta, -torch.arange(0, half, dtype=torch.float32,
+                                           device=x.device) / half)
+    ang = positions.to(device=x.device, dtype=torch.float32)[..., None] * freqs
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap <= 0:
+        return logits
+    return torch.tanh(logits / cap) * cap
+
+
+def _activation(name: str):
+    # The reference's jax.nn.gelu is the tanh approximation by default.
+    if name == "silu":
+        return F.silu
+    return lambda t: F.gelu(t, approximate="tanh")
+
+
+def mlp(params: dict, x: torch.Tensor, *, activation: str = "silu",
+        mode: ComputeMode = ComputeMode.RELAXED) -> torch.Tensor:
+    """Gated MLP (SwiGLU / GeGLU), or a plain 2-layer one without a gate."""
+    act = _activation(activation)
+    if "wg" in params:
+        h = act(mode_dot(x, params["wg"], mode)) * mode_dot(x, params["wu"], mode)
+    else:
+        h = act(mode_dot(x, params["wu"], mode))
+    return mode_dot(h, params["wd"], mode)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def unembed(x: torch.Tensor, table_or_head: torch.Tensor, *, tied: bool,
+            final_cap: float = 0.0,
+            mode: ComputeMode = ComputeMode.RELAXED) -> torch.Tensor:
+    """Logits in f32: a RELAXED product unless the mode is PRECISE."""
+    w = table_or_head.T if tied else table_or_head
+    logits = mode_dot(x, w, ComputeMode.RELAXED if mode is not ComputeMode.PRECISE
+                      else mode).float()
+    return softcap(logits, final_cap)

@@ -17,13 +17,13 @@ public surface is everything in ``__all__``:
 - :func:`run_offered_load` / :func:`warm_replicas` — the open-loop
   serving experiment.
 
-The reference's LLM prefill/decode loop (``ServingEngine``,
-``GenerationResult``) waits for the LM substrate (ROADMAP.md queue 1,
-item 12).
+- :class:`ServingEngine` / :class:`GenerationResult` — the LM
+  prefill/decode loop over the dense models of ``repro_torch.nn``.
 """
 from .batcher import (Bucket, DynamicBatcher, FlushPolicy, ServingFuture,
                       pow2_bucket)
 from .config import ServingConfig
+from .engine import GenerationResult, ServingEngine
 from .dispatch import (DISPATCH_POLICIES, DispatchPolicy, LeastLoadedPolicy,
                        LoadShedError, WorkStealingPolicy,
                        resolve_dispatch_policy)
@@ -40,6 +40,7 @@ __all__ = [
     "DispatchPolicy",
     "DynamicBatcher",
     "FlushPolicy",
+    "GenerationResult",
     "LeastLoadedPolicy",
     "LoadReport",
     "LoadShedError",
@@ -48,6 +49,7 @@ __all__ = [
     "ReplicaSet",
     "ServerStats",
     "ServingConfig",
+    "ServingEngine",
     "ServingFuture",
     "SynthesisServer",
     "WorkStealingPolicy",

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import threading
 import time
-import warnings
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Any, Dict, List, Optional
 
@@ -125,24 +124,14 @@ class Bucket:
 
 
 class DynamicBatcher:
-    def __init__(self, policy: Optional[FlushPolicy] = None, *,
+    def __init__(self, *,
                  config: "Optional[ServingConfig]" = None,
                  registry: Optional[MetricsRegistry] = None,
                  tracer: Optional[Tracer] = None,
                  labels: Optional[Dict[str, object]] = None):
         from .config import ServingConfig
 
-        if policy is not None:
-            if config is not None:
-                raise ValueError("pass either config= or the deprecated "
-                                 "policy= FlushPolicy, not both")
-            warnings.warn(
-                "DynamicBatcher(policy=FlushPolicy(...)) is deprecated; "
-                "pass config=ServingConfig(...) — the consolidated serving "
-                "configuration", DeprecationWarning, stacklevel=2)
-            self.policy = policy
-        else:
-            self.policy = (config or ServingConfig()).flush_policy()
+        self.policy = (config or ServingConfig()).flush_policy()
         self._queue: List[Request] = []
         # Reentrant: the server's dispatch loop queries depth/deadline while
         # holding the condition to sleep on it.

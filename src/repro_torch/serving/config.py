@@ -61,10 +61,13 @@ class ServingConfig:
     Persistent artifacts (the reference's level 3 of the program cache,
     DESIGN.md §13):
 
-    * ``artifact_dir`` — on-disk artifact store root.  The port has no
-      artifact store yet (ROADMAP.md queue 1, item 10): only ``None``
-      (every process start is cold) is accepted; any other value raises
-      ``NotImplementedError`` rather than starting cold silently.
+    * ``artifact_dir`` — on-disk artifact store root; ``None`` (default)
+      means every process start is cold.  A :class:`~repro_torch.serving.
+      replica.ReplicaSet` attaches one shared
+      :class:`~repro_torch.artifacts.ArtifactStore` there as its cache's
+      level 3.  The port's Stage D is a CUDA graph, which it does not
+      serialize, so a warm start hydrates Stages A–C and captures Stage D
+      again (plan-only).
     """
     # -- bucket policy ------------------------------------------------------
     max_batch: int = 8
@@ -98,10 +101,6 @@ class ServingConfig:
             raise ValueError(
                 f"max_queue_depth must be >= 0 (0 = unbounded), "
                 f"got {self.max_queue_depth}")
-        if self.artifact_dir is not None:
-            raise NotImplementedError(
-                f"artifact_dir={self.artifact_dir!r}: the port has no "
-                "artifact store yet (ROADMAP.md queue 1, item 10); pass None")
 
     # -- derived slices -----------------------------------------------------
     def flush_policy(self) -> FlushPolicy:
@@ -113,11 +112,3 @@ class ServingConfig:
     def with_replicas(self, replicas: int) -> "ServingConfig":
         """Same config at a different tier width (benchmark sweeps)."""
         return dataclasses.replace(self, replicas=replicas)
-
-    @classmethod
-    def from_flush_policy(cls, policy: FlushPolicy,
-                          **kwargs) -> "ServingConfig":
-        """Lift a bare :class:`FlushPolicy` (the pre-tier configuration
-        object) into a full config — the deprecated-shim lowering path."""
-        return cls(max_batch=policy.max_batch, flush_depth=policy.flush_depth,
-                   max_delay_s=policy.max_delay_s, **kwargs)

@@ -18,7 +18,6 @@ clock keeps pacing: exactly what an open-loop client population does.
 from __future__ import annotations
 
 import time
-import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Union
 
@@ -27,7 +26,6 @@ import torch
 
 from ..core.synthesizer import SynthesizedProgram
 from ..obs import MetricsRegistry, Tracer
-from .batcher import FlushPolicy
 from .config import ServingConfig
 from .dispatch import LoadShedError
 from .program_cache import ProgramCache
@@ -137,7 +135,6 @@ def _aggregate_server_stats(replica_set: ReplicaSet) -> Dict[str, object]:
 def run_offered_load(program: Union[SynthesizedProgram, ReplicaSet], *,
                      requests: int, rate: float = 0.0,
                      config: Optional[ServingConfig] = None,
-                     policy: Optional[FlushPolicy] = None,
                      cache: Optional[ProgramCache] = None,
                      seed: int = 0, warm: bool = True,
                      timeout_s: float = 300.0,
@@ -147,22 +144,11 @@ def run_offered_load(program: Union[SynthesizedProgram, ReplicaSet], *,
 
     ``program`` is a single :class:`SynthesizedProgram` (replicated
     ``config.replicas`` times) or a pre-built :class:`ReplicaSet` (the
-    device-mesh case).  ``policy=`` is the deprecated pre-``ServingConfig``
-    bucket-policy spelling.  ``registry=``/``tracer=`` hand the freshly
+    device-mesh case).  ``registry=``/``tracer=`` hand the freshly
     built tier an observability sink (ignored for a pre-built ReplicaSet,
     which already carries its own); the tier's registry is always exposed
     on ``LoadReport.registry``.
     """
-    if policy is not None:
-        if config is not None:
-            raise ValueError("pass either config= or the deprecated "
-                             "policy= FlushPolicy, not both")
-        warnings.warn(
-            "run_offered_load(policy=FlushPolicy(...)) is deprecated; pass "
-            "config=ServingConfig(...) — the consolidated serving "
-            "configuration", DeprecationWarning, stacklevel=2)
-        config = ServingConfig.from_flush_policy(policy)
-
     if isinstance(program, ReplicaSet):
         tier = program
         if config is not None and config != tier.config:

@@ -1,7 +1,7 @@
 """Plan/program cache: synthesis runs once, Stage D once per batch bucket.
 
-Two-level cache mirroring the synthesizer's plan-time / shape-specialize
-split (DESIGN.md §6):
+A cache mirroring the synthesizer's plan-time / shape-specialize split
+(DESIGN.md §6), with a persistent level under it:
 
   level 1  ``(network, program fingerprint)`` ->
            :class:`SynthesizedProgram` — Stages A–C.  Admitted once per
@@ -16,8 +16,13 @@ split (DESIGN.md §6):
            already holds it finishes its call, and the graph and its pool
            are freed with the last reference.
 
-The reference's level 3 (a persistent artifact store) is not ported yet
-(ROADMAP.md queue 1, item 10).
+  level 3  an optional persistent :class:`~repro_torch.artifacts.
+           ArtifactStore` (``store=``): a bucket is hydrated from it before
+           it is built, and written back after a build.  The port
+           serializes no CUDA graph, so every bucket is a ``kind=executable``
+           miss and one Stage-D build, as on the reference's plan-only
+           platforms; the store's gain is the program of Stages A–C
+           (``synthesize(artifact_store=)``).
 
 Concurrency: level-2 lookups and bookkeeping run under one cache-wide
 lock, but Stage-D builds run under **per-key in-flight locks**
@@ -40,7 +45,6 @@ integer-attribute read surface (``stats.hits`` etc.).
 from __future__ import annotations
 
 import threading
-import warnings
 from collections import OrderedDict
 from typing import TYPE_CHECKING, Dict, Optional, Tuple
 
@@ -48,6 +52,7 @@ from ..core.synthesizer import BatchProgram, SynthesizedProgram
 from ..obs import MetricsRegistry, Tracer
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
+    from ..artifacts import ArtifactStore
     from .config import ServingConfig
 
 CacheKey = Tuple[str, int, str]          # (network, bucket, program fp)
@@ -147,36 +152,26 @@ class ProgramCache:
     ``config.cache_entries`` bounds level 2 (each entry holds a CUDA graph
     and its memory pool on the card); level 1 holds one
     ``SynthesizedProgram`` per admitted ``(network, fingerprint)`` and is
-    not evicted — weights live there.  ``max_entries=`` is the deprecated
-    pre-:class:`~repro_torch.serving.config.ServingConfig` spelling of the
-    same budget.
+    not evicted — weights live there.  ``store=`` is level 3.
     """
 
-    def __init__(self, max_entries: Optional[int] = None, *,
-                 config: "Optional[ServingConfig]" = None,
+    def __init__(self, *, config: "Optional[ServingConfig]" = None,
                  registry: Optional[MetricsRegistry] = None,
-                 tracer: Optional[Tracer] = None):
+                 tracer: Optional[Tracer] = None,
+                 store: "Optional[ArtifactStore]" = None):
         from .config import ServingConfig
 
-        if max_entries is not None:
-            if config is not None:
-                raise ValueError("pass either config= or the deprecated "
-                                 "max_entries=, not both")
-            warnings.warn(
-                "ProgramCache(max_entries=...) is deprecated; pass "
-                "config=ServingConfig(cache_entries=...) — the consolidated "
-                "serving configuration", DeprecationWarning, stacklevel=2)
-        else:
-            max_entries = (config or ServingConfig()).cache_entries
-        if max_entries < 1:
-            raise ValueError("max_entries must be >= 1")
-        self.max_entries = max_entries
+        # ServingConfig validates cache_entries >= 1.
+        self.max_entries = (config or ServingConfig()).cache_entries
         self.stats = CacheStats(registry=registry)
         #: The registry every ``serving_cache_*`` series lives in — a tier
         #: that shares this cache (ReplicaSet) adopts it for its own
         #: metrics so one snapshot covers cache + batcher + dispatch.
         self.registry = self.stats.registry
         self.tracer = tracer
+        #: Level 3: the persistent store (or None).  Hydrate before a
+        #: build, write back after one.
+        self.store = store
         self._lock = threading.Lock()
         self._programs: Dict[Tuple[str, str], SynthesizedProgram] = {}
         self._compiled: "OrderedDict[CacheKey, BatchProgram]" = OrderedDict()
@@ -234,15 +229,27 @@ class ProgramCache:
                     self.stats.hit()
                     return hit
                 self.stats.miss()
-            if self.tracer is not None:
-                with self.tracer.span("synthesis.stage_d_compile",
-                                      net=program.net.name, batch=batch) as s:
+            compiled: Optional[BatchProgram] = None
+            if self.store is not None:
+                # Level 3 (the store counts its hit, miss or invalid read).
+                compiled = self.store.load_executable(program, batch)
+            if compiled is None:
+                if self.tracer is not None:
+                    with self.tracer.span("synthesis.stage_d_compile",
+                                          net=program.net.name,
+                                          batch=batch) as s:
+                        compiled = program.for_batch(batch)
+                        if s is not None:
+                            s.attrs["compile_seconds"] = \
+                                compiled.compile_seconds
+                else:
                     compiled = program.for_batch(batch)
-                    if s is not None:
-                        s.attrs["compile_seconds"] = compiled.compile_seconds
-            else:
-                compiled = program.for_batch(batch)
-            self.stats.compiled(compiled.compile_seconds)
+                self.stats.compiled(compiled.compile_seconds)
+                if self.store is not None:
+                    try:          # write-back is best-effort persistence
+                        self.store.put_executable(program, batch)
+                    except OSError:
+                        pass
             with self._lock:
                 self._compiled[key] = compiled
                 self._inflight.pop(key, None)

@@ -132,11 +132,20 @@ class ReplicaSet:
         # One registry + tracer for the whole tier (DESIGN.md §12): the
         # shared cache, every replica's server, and every batcher write
         # into them, so one snapshot / one JSONL file covers the tier.
-        # (The reference's ``config.artifact_dir`` level 3 is not ported:
-        # ServingConfig refuses any value but None.)
+        # ``config.artifact_dir`` attaches one shared ArtifactStore as the
+        # cache's persistent level 3 (DESIGN.md §13): identical replicas
+        # hydrate the same program, and device-distinct fingerprints never
+        # alias on disk for the same reason they never alias in memory.
         if cache is None:
             cache = ProgramCache(config=config, registry=registry,
                                  tracer=tracer)
+            if config.artifact_dir is not None:
+                from ..artifacts import ArtifactStore
+                # Built after the cache, so that the store's artifact_*
+                # counters land in the cache's registry.
+                cache.store = ArtifactStore(config.artifact_dir,
+                                            registry=cache.registry,
+                                            tracer=tracer)
         self.cache = cache
         self.registry = registry if registry is not None else \
             self.cache.registry

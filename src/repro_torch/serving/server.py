@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import threading
 import time
-import warnings
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
@@ -35,7 +34,7 @@ import torch
 
 from ..core.synthesizer import SynthesizedProgram
 from ..obs import MetricsRegistry, Tracer
-from .batcher import Bucket, DynamicBatcher, FlushPolicy, ServingFuture
+from .batcher import Bucket, DynamicBatcher, ServingFuture
 from .config import ServingConfig
 from .program_cache import ProgramCache
 
@@ -72,8 +71,7 @@ class SynthesisServer:
 
     ``config`` is the consolidated
     :class:`~repro_torch.serving.config.ServingConfig` — bucket policy and
-    cache budget both come from it (``policy=`` is the deprecated
-    pre-config spelling).  ``program``
+    cache budget both come from it.  ``program``
     carries Stages A–C (plan + prepared weights); the server only ever
     triggers Stage D, through the shared ``cache`` — pass one
     ``ProgramCache`` to several servers to share built buckets across
@@ -83,19 +81,9 @@ class SynthesisServer:
     def __init__(self, program: SynthesizedProgram, *,
                  config: Optional[ServingConfig] = None,
                  cache: Optional[ProgramCache] = None,
-                 policy: Optional[FlushPolicy] = None,
                  registry: Optional[MetricsRegistry] = None,
                  tracer: Optional[Tracer] = None,
                  labels: Optional[Dict[str, object]] = None):
-        if policy is not None:
-            if config is not None:
-                raise ValueError("pass either config= or the deprecated "
-                                 "policy= FlushPolicy, not both")
-            warnings.warn(
-                "SynthesisServer(policy=FlushPolicy(...)) is deprecated; "
-                "pass config=ServingConfig(...) — the consolidated serving "
-                "configuration", DeprecationWarning, stacklevel=2)
-            config = ServingConfig.from_flush_policy(policy)
         self.config = config or ServingConfig()
         self.program = program
         self.cache = cache if cache is not None else \
@@ -168,7 +156,12 @@ class SynthesisServer:
                     [x, np.zeros((bucket.padding, *x.shape[1:]), x.dtype)])
             out = compiled(torch.from_numpy(x).to(
                 device=self.program.device, dtype=self.program.input_dtype))
-            out = out.cpu().numpy()       # waits for the device
+            out = out.cpu()               # waits for the device
+            if out.dtype == torch.bfloat16:
+                # numpy has no bf16 (the reference's arrays use ml_dtypes'):
+                # widen, which is exact.
+                out = out.float()
+            out = out.numpy()
             self._dispatch_seconds.observe(self.registry.clock() - t0,
                                            **self._labels)
             with self._stats_lock:

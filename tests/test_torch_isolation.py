@@ -34,8 +34,13 @@ def _chip_smoke_imports():
 
 def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     modules = _port_modules() + _chip_smoke_imports()
-    assert "repro_torch.core.synthesizer" in modules
-    assert "repro_torch.kernels.conv_mapmajor.ops" in modules
+    for name in ("repro_torch.core.synthesizer",
+                 "repro_torch.kernels.conv_mapmajor.ops",
+                 "repro_torch.artifacts.codec", "repro_torch.artifacts.store",
+                 "repro_torch.nn.attention", "repro_torch.nn.model",
+                 "repro_torch.configs.qwen2_7b", "repro_torch.serving.engine",
+                 "repro_torch.launch.serve"):
+        assert name in modules, name
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
@@ -76,7 +81,8 @@ SUBPACKAGES = sorted(
 
 
 def test_subpackages_are_found():
-    assert {"core", "device", "obs"} <= set(SUBPACKAGES)
+    assert {"artifacts", "configs", "core", "device", "nn", "obs"} \
+        <= set(SUBPACKAGES)
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)

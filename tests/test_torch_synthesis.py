@@ -188,11 +188,20 @@ def test_for_batch_counts_compiles_and_rejects_other_shapes():
     assert prog.fingerprint().startswith(prog.plan.fingerprint())
 
 
-def test_unported_options_raise():
-    """What the port still lacks: the artifact store (ROADMAP.md queue 1).
-    Autotune, the sequential baseline and KLP now run; their tests are in
-    test_torch_timed_groups.py and test_torch_parallelism.py."""
+def test_unported_options_raise(tmp_path):
+    """Every option of the reference's ``synthesize`` is ported now: the
+    artifact store last (its cases are in test_torch_artifacts.py), after
+    autotune, the sequential baseline and KLP (test_torch_timed_groups.py,
+    test_torch_parallelism.py).  What is left to pin here: ``plan=``
+    bypasses the store, as in the reference, and an object that is not a
+    store fails loudly instead of synthesizing cold."""
+    from repro_torch.artifacts import ArtifactStore
     net = alexnet(**KW)
     params = params_from_numpy(reference_params(jax_alexnet(**KW)), "cpu")
-    with pytest.raises(TypeError):
+    plan = synthesize(net, params, forced_mode=ComputeMode.RELAXED).plan
+    store = ArtifactStore(str(tmp_path))
+    synthesize(net, params, plan=plan, forced_mode=ComputeMode.RELAXED,
+               artifact_store=store)
+    assert store.stats()["misses"] == 0 and store.writes == 0
+    with pytest.raises(AttributeError, match="load_program_for"):
         synthesize(net, params, artifact_store=object())
