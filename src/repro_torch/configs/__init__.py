@@ -2,8 +2,6 @@
 
 ``get_config(name)`` returns the exact published ModelConfig;
 ``get_smoke_config(name)`` the reduced same-family variant for CPU tests.
-The port's model runs the dense ones (qwen2-7b, qwen3-32b,
-command-r-plus-104b, gemma2-9b); the others load as data.
 """
 from __future__ import annotations
 

@@ -7,8 +7,9 @@ The port of ``repro.launch.serve``, with its flags, plus ``--device``
 (``cuda`` by default; ``cpu`` runs on the host) and ``--seed``: the weights
 are drawn on the device from ``--seed``, the prompts from ``--seed + 1`` and
 sampling from ``--seed + 2``.  Without ``--layers``/``--d-model`` the config
-runs at its published size.  Runs the dense configs (qwen2-7b, qwen3-32b,
-command-r-plus-104b, gemma2-9b); any other raises ``NotImplementedError``.
+runs at its published size.  Runs every config in ``repro_torch.configs``; a
+config with ``cross`` layers gets zeros as its encoder frames or image
+tokens, as the reference's launcher gives them.
 """
 from __future__ import annotations
 
@@ -51,8 +52,12 @@ def main(argv=None):
     g = torch.Generator(device=device).manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=g, device=device)
+    aux = None
+    if cfg.is_encoder_decoder or cfg.num_image_tokens:
+        aux = torch.zeros((args.batch, cfg.encoder_seq or cfg.num_image_tokens,
+                           cfg.d_model), device=device)
     res = engine.generate(
-        prompts, max_new_tokens=args.gen, temperature=args.temperature,
+        prompts, max_new_tokens=args.gen, aux=aux, temperature=args.temperature,
         generator=torch.Generator(device=device).manual_seed(args.seed + 2))
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
           f"gen={res.steps} device={device}")

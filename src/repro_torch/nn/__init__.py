@@ -1,13 +1,20 @@
-"""The LM substrate of the port: configs, layers, attention and the dense
-model (prefill and decode).  The port of ``repro.nn``; MoE, SSM, xLSTM,
-cross-attention, encoders and sharding are ROADMAP.md queue 1's."""
-from .attention import KVCache, self_attention
+"""The LM substrate of the port: configs, layers, attention, the MoE, SSM
+and xLSTM blocks, and the model (prefill and decode) of every family.  The
+port of ``repro.nn``; training and sharding are ROADMAP.md queue 1's."""
+from .attention import KVCache, cross_attention, self_attention
 from .config import ModelConfig, MoEConfig, SSMConfig
-from .model import (decode_step, init_cache, init_params,
-                    params_from_reference, prefill, require_dense)
+from .model import (active_params, decode_step, encode, init_cache,
+                    init_params, num_params, params_from_reference, prefill,
+                    tree_leaves, tree_map)
+from .moe import load_balance_loss, moe_ffn, route
+from .ssm import SSMState, mamba_mixer
+from .xlstm import MLSTMState, SLSTMState, mlstm_block, slstm_block
 
 __all__ = [
-    "KVCache", "ModelConfig", "MoEConfig", "SSMConfig", "decode_step",
-    "init_cache", "init_params", "params_from_reference", "prefill",
-    "require_dense", "self_attention",
+    "KVCache", "MLSTMState", "ModelConfig", "MoEConfig", "SLSTMState",
+    "SSMConfig", "SSMState", "active_params", "cross_attention",
+    "decode_step", "encode", "init_cache", "init_params", "load_balance_loss",
+    "mamba_mixer", "mlstm_block", "moe_ffn", "num_params",
+    "params_from_reference", "prefill", "route", "self_attention",
+    "slstm_block", "tree_leaves", "tree_map",
 ]

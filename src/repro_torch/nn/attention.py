@@ -1,9 +1,8 @@
 """Attention: GQA with rope / qk-norm / bias / softcap, causal and
 sliding-window masks, chunked (online-softmax) execution, KV-cache decode.
 
-The port of ``repro.nn.attention`` (self-attention only; cross-attention
-waits for the cross-attention architectures, ROADMAP.md queue 1).  The
-chunked formulation walks key blocks with a running (max, denominator,
+The port of ``repro.nn.attention``: self-attention and cross-attention to
+encoder or image tokens.  The chunked formulation walks key blocks with a running (max, denominator,
 accumulator) triple, so the S x S score matrix is never materialized.  It is
 plain tensor code of the reference's ``_chunk_attn`` arithmetic, not
 ``F.scaled_dot_product_attention``, which has neither the logit softcap nor
@@ -202,3 +201,42 @@ def self_attention(params: dict, x: torch.Tensor, cfg, *,
     out = mode_dot(out.reshape(b, s, h * hd),
                    params["wo"].reshape(h * hd, cfg.d_model), mode)
     return out, new_cache
+
+
+def cross_attention(params: dict, x: torch.Tensor,
+                    kv_src: Optional[torch.Tensor], cfg, *,
+                    mode: ComputeMode = ComputeMode.RELAXED,
+                    precomputed_kv: Optional[Tuple[torch.Tensor,
+                                                   torch.Tensor]] = None):
+    """Cross-attention to encoder / image tokens: no mask, no rope.
+
+    kv_src: (B, S_enc, d), or None when ``precomputed_kv`` (the fused
+    (B, S_enc, KV*hd) K and V a prefill returned) is given; ``knorm`` is
+    applied only where the keys are computed.  Returns (out, (k, v)) with
+    k and v fused, in the projection's dtype.
+    """
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    b, s, _ = x.shape
+    scale = 1.0 / math.sqrt(hd)
+    q = mode_dot(x, params["wq"].reshape(cfg.d_model, h * hd), mode) \
+        .reshape(b, s, h, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["qnorm"], cfg.norm_eps)
+    if precomputed_kv is not None:
+        kf, vf = precomputed_kv
+        se = kf.shape[1]
+        k, v = kf.reshape(b, se, kvh, hd), vf.reshape(b, se, kvh, hd)
+    else:
+        se = kv_src.shape[1]
+        k = mode_dot(kv_src, params["wk"].reshape(cfg.d_model, kvh * hd),
+                     mode).reshape(b, se, kvh, hd)
+        v = mode_dot(kv_src, params["wv"].reshape(cfg.d_model, kvh * hd),
+                     mode).reshape(b, se, kvh, hd)
+        if cfg.qk_norm:
+            k = rms_norm(k, params["knorm"], cfg.norm_eps)
+    zeros = lambda n: torch.zeros((n,), dtype=torch.int64, device=x.device)
+    out = _chunk_attn(q, k, v, q_pos=zeros(s), k_pos=zeros(se), causal=False,
+                      window=0, logit_cap=cfg.attn_logit_softcap, scale=scale)
+    out = mode_dot(out.reshape(b, s, h * hd),
+                   params["wo"].reshape(h * hd, cfg.d_model), mode)
+    return out, (k.reshape(b, se, kvh * hd), v.reshape(b, se, kvh * hd))

@@ -5,8 +5,6 @@ The port's own copy of ``repro.nn.config``: one dataclass covers dense / MoE
 ``src/repro_torch/configs/<id>.py`` instantiates it with the published
 hyper-parameters (source cited per config).  ``block_pattern`` gives the
 kind of each layer: layer ``i`` is ``block_pattern[i % len(block_pattern)]``.
-The port runs the dense kinds (``attn``, ``attn_local``, ``attn_global``);
-the fields of the other families are carried so that every config loads.
 """
 from __future__ import annotations
 

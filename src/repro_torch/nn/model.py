@@ -1,82 +1,171 @@
-"""Model assembly for the dense family: params, prefill and decode.
+"""Model assembly: params, prefill and decode for every architecture family
+of the config pool.
 
-The port of ``repro.nn.model`` for the configs whose blocks are all
-``attn`` / ``attn_local`` / ``attn_global`` and that have no MoE, SSM,
-encoder or image tokens: Qwen2-7B, Qwen3-32B, Command R+ and Gemma-2-9B.
-Any other config raises ``NotImplementedError`` (ROADMAP.md queue 1), never
-a partial model.
+The port of ``repro.nn.model``'s serving path.  The block kinds:
+
+* ``attn`` / ``attn_local`` / ``attn_global``: self-attention and an MLP, or
+  a mixture of experts where the config has one (``nn/moe.py``);
+* ``hybrid``: sliding-window attention and a mamba mixer (``nn/ssm.py``) on
+  the same normed input, averaged, then the MLP (hymba);
+* ``cross``: self-attention, cross-attention to encoder frames or image
+  tokens, then the MLP (whisper, llama-vision); an encoder-decoder config
+  runs :func:`encode` over its frames first;
+* ``mlstm`` / ``slstm``: the xLSTM blocks (``nn/xlstm.py``).
 
 The reference scans a stack of ``(G, ...)`` parameters over pattern periods;
 the port keeps one parameter dict per layer (``params["layers"][i]``, of
-kind ``cfg.block_pattern[i % P]``) and runs them in a Python loop.
-:func:`params_from_reference` unstacks the reference's tree into that form,
-which is how the tests run both packages on the same weights.  The
+kind ``cfg.block_pattern[i % P]``; a hybrid layer nests its mixer under
+``"mamba"``, a cross layer its second attention under ``"cross"``; the
+encoder's layers are ``params["enc_layers"]``) and runs them in a Python
+loop.  :func:`params_from_reference` unstacks the reference's tree into that
+form, which is how the tests run both packages on the same weights.  The
 reference's sharding constraints are the identity on one card and are not
 ported.  Training (``forward``/``loss_fn``) waits for the training slice.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..core.precision import ComputeMode
-from .attention import KVCache, self_attention
+from .attention import KVCache, cross_attention, self_attention
 from .config import ModelConfig
 from .layers import embed, mlp, rms_norm, unembed
+from .moe import moe_ffn
+from .ssm import SSMState, mamba_mixer
+from .xlstm import MLSTMState, SLSTMState, mlstm_block, slstm_block
 
-DENSE_KINDS = ("attn", "attn_local", "attn_global")
+ATTN_KINDS = ("attn", "attn_local", "attn_global", "cross", "hybrid")
+BLOCK_KINDS = ATTN_KINDS + ("mlstm", "slstm")
 
 Params = Dict[str, Any]
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot run whole."""
-    missing = [what for what, present in (
-        ("MoE", cfg.moe is not None), ("SSM", cfg.ssm is not None),
-        ("an encoder", cfg.is_encoder_decoder),
-        ("image tokens", cfg.num_image_tokens > 0)) if present]
-    missing += [f"block kind {k!r}" for k in dict.fromkeys(cfg.block_pattern)
-                if k not in DENSE_KINDS]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense family only; "
-            f"{', '.join(missing)} is not ported yet (ROADMAP.md queue 1)")
+# ---------------------------------------------------------------------------
+# Parameter trees
+# ---------------------------------------------------------------------------
+
+def tree_map(fn: Callable, tree):
+    """``fn`` applied to every leaf of a nest of dicts, lists and tuples
+    (named tuples keep their type): parameters and caches alike."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> Iterator:
+    """Every leaf of the nest, in :func:`tree_map`'s order."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_leaves(v)
+    else:
+        yield tree
 
 
 # ---------------------------------------------------------------------------
-# Parameters: name -> (shape, fan_in); fan_in 0 = zero-initialized
+# Parameters: name -> (shape, fan_in), nested; fan_in 0 = zero-initialized
 # ---------------------------------------------------------------------------
 
-def _layer_defs(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], int]]:
+Def = Tuple[Tuple[int, ...], int]
+
+
+def _attn_defs(cfg: ModelConfig) -> Dict[str, Def]:
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
-    p = {"ln1": ((d,), 0),
-         "wq": ((d, h * hd), d), "wk": ((d, kv * hd), d),
+    p = {"wq": ((d, h * hd), d), "wk": ((d, kv * hd), d),
          "wv": ((d, kv * hd), d), "wo": ((h * hd, d), h * hd)}
     if cfg.qkv_bias:
         p.update(bq=((h * hd,), 0), bk=((kv * hd,), 0), bv=((kv * hd,), 0))
     if cfg.qk_norm:
         p.update(qnorm=((hd,), 0), knorm=((hd,), 0))
-    if cfg.sandwich_norm:
-        p["ln1_post"] = ((d,), 0)
-    if not cfg.parallel_block:
-        p["ln2"] = ((d,), 0)
-        if cfg.sandwich_norm:
-            p["ln2_post"] = ((d,), 0)
-    if cfg.d_ff > 0:
-        f = cfg.d_ff
-        p.update(wg=((d, f), d), wu=((d, f), d), wd=((f, d), f))
     return p
 
 
-def _top_defs(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], int]]:
+def _mlp_defs(cfg: ModelConfig) -> Dict[str, Def]:
+    d, f = cfg.d_model, cfg.d_ff
+    return {"wg": ((d, f), d), "wu": ((d, f), d), "wd": ((f, d), f)}
+
+
+def _moe_defs(cfg: ModelConfig) -> Dict[str, Def]:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    return {"router": ((d, e), d), "wg": ((e, d, f), d),
+            "wu": ((e, d, f), d), "wd": ((e, f, d), f)}
+
+
+def _mamba_defs(cfg: ModelConfig) -> Dict[str, Def]:
+    d = cfg.d_model
+    di = cfg.ssm.expand * d
+    n, cw = cfg.ssm.state_dim, cfg.ssm.conv_width
+    return {"w_in": ((d, 2 * di), d), "conv_w": ((cw, di), 0),
+            "w_dt": ((di, di), di), "dt_bias": ((di,), 0),
+            "A_log": ((di, n), 0), "w_B": ((di, n), di), "w_C": ((di, n), di),
+            "D": ((di,), 0), "w_out": ((di, d), di)}
+
+
+def _mlstm_defs(cfg: ModelConfig) -> Dict[str, Def]:
+    d, h = cfg.d_model, cfg.num_heads
+    di = 2 * d
+    return {"w_in": ((d, 2 * di), d), "conv_w": ((4, di), 0),
+            "wq": ((di, di), di), "wk": ((di, di), di), "wv": ((di, di), di),
+            "w_i": ((di, h), di), "w_f": ((di, h), di),
+            "cell_norm": ((di // h,), 0), "w_out": ((di, d), di)}
+
+
+def _slstm_defs(cfg: ModelConfig) -> Dict[str, Def]:
+    d = cfg.d_model
+    f43 = max((4 * d // 3 + 127) // 128 * 128, 128)
+    return {"w_gates": ((d, 4 * d), d), "r_gates": ((4, d), 0),
+            "cell_norm": ((d,), 0), "w_ff_g": ((d, f43), d),
+            "w_ff_u": ((d, f43), d), "w_ff_d": ((f43, d), f43)}
+
+
+def _layer_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
+    """One layer's parameter definitions, in the reference's key order;
+    ``ValueError`` for an unknown kind."""
+    d = cfg.d_model
+    p: Dict[str, Any] = {"ln1": ((d,), 0)}
+    if kind in ATTN_KINDS:
+        p.update(_attn_defs(cfg))
+        if kind == "cross":
+            p["lnx"] = ((d,), 0)
+            p["cross"] = _attn_defs(cfg)
+        if kind == "hybrid":
+            p["mamba"] = _mamba_defs(cfg)
+        if cfg.sandwich_norm:
+            p["ln1_post"] = ((d,), 0)
+        if not cfg.parallel_block:
+            p["ln2"] = ((d,), 0)
+            if cfg.sandwich_norm:
+                p["ln2_post"] = ((d,), 0)
+        if cfg.moe is not None:
+            p.update(_moe_defs(cfg))
+        elif cfg.d_ff > 0:
+            p.update(_mlp_defs(cfg))
+    elif kind == "mlstm":
+        p.update(_mlstm_defs(cfg))
+    elif kind == "slstm":
+        p.update(_slstm_defs(cfg))
+    else:
+        raise ValueError(f"unknown block kind {kind!r}; known: {BLOCK_KINDS}")
+    return p
+
+
+def _top_defs(cfg: ModelConfig) -> Dict[str, Def]:
     d, v = cfg.d_model, cfg.vocab_size
     p = {"embed": ((v, d), d), "final_norm": ((d,), 0)}
     if not cfg.tie_embeddings:
         p["lm_head"] = ((d, v), d)
+    if cfg.is_encoder_decoder:
+        p["enc_final_norm"] = ((d,), 0)
     return p
 
 
@@ -84,32 +173,83 @@ def layer_kind(cfg: ModelConfig, i: int) -> str:
     return cfg.block_pattern[i % cfg.pattern_period]
 
 
+def _is_def(x) -> bool:
+    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], tuple)
+
+
+def _map_defs(fn: Callable[[Def], Any], defs):
+    if _is_def(defs):
+        return fn(defs)
+    return {k: _map_defs(fn, v) for k, v in defs.items()}
+
+
+def _count(defs) -> int:
+    if _is_def(defs):
+        return math.prod(defs[0])
+    return sum(_count(v) for v in defs.values())
+
+
 def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int],
                 device: "str | torch.device" = "cuda",
                 dtype: torch.dtype = torch.float32) -> Params:
     """Random weights drawn on ``device``: normal with the reference's
-    ``1/sqrt(fan_in)`` scale, norms and biases zero.  ``generator`` is a
-    ``torch.Generator`` on that device, or a seed for one."""
-    require_dense(cfg)
+    ``1/sqrt(fan_in)`` scale, norms and biases zero, and the reference's
+    fixes of the recurrent blocks: ``A_log = log(1..N)`` (decays in (0, 1)),
+    ``dt_bias + 0.1``, and the last tap of every depthwise conv set to 1 (a
+    conv of all-zero taps would be dead).  ``generator`` is a
+    ``torch.Generator`` on ``device``, or a seed for one."""
     device = torch.device(device)
     if not isinstance(generator, torch.Generator):
         generator = torch.Generator(device=device).manual_seed(int(generator))
 
-    def draw(shape, fan_in):
+    def draw(d: Def) -> torch.Tensor:
+        shape, fan_in = d
         if fan_in == 0:
             return torch.zeros(shape, dtype=dtype, device=device)
         return torch.randn(shape, generator=generator, dtype=dtype,
                            device=device) * (1.0 / math.sqrt(fan_in))
 
-    params: Params = {n: draw(*d) for n, d in _top_defs(cfg).items()}
-    params["layers"] = [{n: draw(*d) for n, d in _layer_defs(cfg).items()}
-                        for _ in range(cfg.num_layers)]
+    def fix(layer: dict) -> dict:
+        if "mamba" in layer:
+            m = layer["mamba"]
+            n = torch.arange(1, cfg.ssm.state_dim + 1, dtype=torch.float32,
+                             device=device)
+            m["A_log"] = torch.log(n).to(dtype).expand(m["A_log"].shape).contiguous()
+            m["conv_w"][-1] = 1.0
+            m["dt_bias"] = m["dt_bias"] + 0.1
+        if "conv_w" in layer:
+            layer["conv_w"][-1] = 1.0
+        return layer
+
+    params: Params = _map_defs(draw, _top_defs(cfg))
+    params["layers"] = [fix(_map_defs(draw, _layer_defs(cfg, layer_kind(cfg, i))))
+                        for i in range(cfg.num_layers)]
+    if cfg.is_encoder_decoder:
+        params["enc_layers"] = [_map_defs(draw, _layer_defs(cfg, "attn"))
+                                for _ in range(cfg.encoder_layers)]
     return params
 
 
 def num_params(cfg: ModelConfig) -> int:
-    count = lambda defs: sum(math.prod(s) for s, _ in defs.values())
-    return count(_top_defs(cfg)) + cfg.num_layers * count(_layer_defs(cfg))
+    """The parameter count, from the definitions (nothing is allocated)."""
+    return (_count(_top_defs(cfg))
+            + sum(_count(_layer_defs(cfg, layer_kind(cfg, i)))
+                  for i in range(cfg.num_layers))
+            + cfg.encoder_layers * _count(_layer_defs(cfg, "attn")))
+
+
+def active_params(cfg: ModelConfig) -> int:
+    """Parameters active per token: a MoE counts top_k of num_experts."""
+    total = num_params(cfg)
+    if cfg.moe is None:
+        return total
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    expert_leaf = 0
+    for i in range(cfg.num_layers):
+        defs = _layer_defs(cfg, layer_kind(cfg, i))
+        expert_leaf += sum(math.prod(defs[n][0]) for n in ("wg", "wu", "wd")
+                           if n in defs and len(defs[n][0]) == 3)
+    return total - expert_leaf + int(expert_leaf * k / e)
 
 
 def _as_tensor(a, device, dtype) -> torch.Tensor:
@@ -127,20 +267,22 @@ def params_from_reference(cfg: ModelConfig, np_params: Dict[str, Any], *,
     """The reference's parameter tree (``repro.nn.model.init_params``
     layout; arrays as numpy or anything ``np.asarray`` takes) as the port's.
 
-    ``np_params["blocks"]`` holds one dict per pattern position, each leaf
-    stacked ``(G, ...)`` over the groups; layer ``g * P + p`` of the port is
-    entry ``g`` of position ``p``.
+    ``np_params["blocks"]`` holds one (nested) dict per pattern position,
+    each leaf stacked ``(G, ...)`` over the groups; layer ``g * P + p`` of
+    the port is entry ``g`` of position ``p``.  ``enc_blocks`` holds one
+    dict stacked over the encoder's layers.
     """
-    require_dense(cfg)
-    out: Params = {n: _as_tensor(np_params[n], device, dtype)
-                   for n in _top_defs(cfg)}
+    conv = lambda a: _as_tensor(a, device, dtype)
+    out: Params = {n: conv(np_params[n]) for n in _top_defs(cfg)}
     blocks = np_params["blocks"]
     period = cfg.pattern_period
-    out["layers"] = [
-        {n: _as_tensor(np.asarray(blocks[i % period][n])[i // period],
-                       device, dtype)
-         for n in _layer_defs(cfg)}
-        for i in range(cfg.num_layers)]
+    out["layers"] = [tree_map(lambda a: conv(np.asarray(a)[i // period]),
+                              blocks[i % period])
+                     for i in range(cfg.num_layers)]
+    if cfg.is_encoder_decoder:
+        out["enc_layers"] = [
+            tree_map(lambda a: conv(np.asarray(a)[j]), np_params["enc_blocks"][0])
+            for j in range(cfg.encoder_layers)]
     return out
 
 
@@ -149,37 +291,76 @@ def params_from_reference(cfg: ModelConfig, np_params: Dict[str, Any], *,
 # ---------------------------------------------------------------------------
 
 def resolve_window(cfg: ModelConfig, kind: str, window_override: int) -> int:
-    if kind == "attn_local":
+    if kind in ("attn_local", "hybrid"):
         return cfg.sliding_window
     if window_override > 0:
         return window_override
     return 0
 
 
+def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig,
+         mode: ComputeMode) -> torch.Tensor:
+    if cfg.moe is not None:
+        return moe_ffn(p, h, cfg, mode=mode)
+    return mlp(p, h, activation=cfg.ffn_activation, mode=mode)
+
+
 def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor, mode: ComputeMode,
-                window_override: int = 0, cache: Optional[KVCache] = None,
-                cache_pos: Optional[int] = None, return_cache: bool = False
-                ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """One dense block; returns (x, the layer's cache or None)."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    attn_out, new_cache = self_attention(
-        p, h, cfg, positions=positions, causal=True,
-        window=resolve_window(cfg, kind, window_override), cache=cache,
-        cache_pos=cache_pos, return_cache=return_cache, mode=mode)
-    if cfg.sandwich_norm:
-        attn_out = rms_norm(attn_out, p["ln1_post"], cfg.norm_eps)
-    if cfg.parallel_block:
-        f = mlp(p, h, activation=cfg.ffn_activation, mode=mode)
-        return x + attn_out + f, new_cache
-    x = x + attn_out
-    if cfg.d_ff > 0:
-        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-        f = mlp(p, h2, activation=cfg.ffn_activation, mode=mode)
+                window_override: int = 0, aux_kv: Optional[torch.Tensor] = None,
+                cache=None, cache_pos: Optional[int] = None):
+    """One block; returns (x, the layer's cache).  Without ``cache`` (a
+    prefill) the cache is new, of the prompt's length; with it (a decode
+    step at ``cache_pos``) K/V are written into it in place.  The cache of
+    each kind is described in :func:`init_cache`."""
+    if kind in ATTN_KINDS:
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        attn_cache = cache[0] if (cache is not None
+                                  and kind in ("hybrid", "cross")) else cache
+        attn_out, new_kv = self_attention(
+            p, h, cfg, positions=positions, causal=True,
+            window=resolve_window(cfg, kind, window_override),
+            cache=attn_cache, cache_pos=cache_pos,
+            return_cache=cache is None, mode=mode)
         if cfg.sandwich_norm:
-            f = rms_norm(f, p["ln2_post"], cfg.norm_eps)
-        x = x + f
-    return x, new_cache
+            attn_out = rms_norm(attn_out, p["ln1_post"], cfg.norm_eps)
+
+        new_cache = new_kv
+        if kind == "hybrid":
+            m_out, new_ssm = mamba_mixer(p["mamba"], h, cfg, mode=mode,
+                                         state=cache[1] if cache is not None else None)
+            new_cache = (new_kv, new_ssm)
+            attn_out = 0.5 * (attn_out + m_out)
+        elif kind == "cross":
+            x_mid = x + attn_out
+            hx = rms_norm(x_mid, p["lnx"], cfg.norm_eps)
+            c_out, ckv = cross_attention(
+                p["cross"], hx, aux_kv, cfg, mode=mode,
+                precomputed_kv=cache[1] if cache is not None else None)
+            new_cache = (new_kv, ckv)
+            x = x_mid + c_out
+            f = _ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg, mode)
+            if cfg.sandwich_norm:
+                f = rms_norm(f, p["ln2_post"], cfg.norm_eps)
+            return x + f, new_cache
+
+        if cfg.parallel_block:
+            return x + attn_out + _ffn(p, h, cfg, mode), new_cache
+        x = x + attn_out
+        if cfg.d_ff > 0 or cfg.moe is not None:
+            f = _ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg, mode)
+            if cfg.sandwich_norm:
+                f = rms_norm(f, p["ln2_post"], cfg.norm_eps)
+            x = x + f
+        return x, new_cache
+
+    if kind in ("mlstm", "slstm"):
+        block = mlstm_block if kind == "mlstm" else slstm_block
+        out, st = block(p, rms_norm(x, p["ln1"], cfg.norm_eps), cfg, state=cache,
+                        mode=mode)
+        return x + out, st
+
+    raise ValueError(f"unknown block kind {kind!r}; known: {BLOCK_KINDS}")
 
 
 def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -198,6 +379,39 @@ def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig,
                    final_cap=cfg.final_logit_softcap, mode=mode)
 
 
+def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
+           mode: ComputeMode = ComputeMode.RELAXED) -> torch.Tensor:
+    """Whisper-style encoder over stubbed frame embeddings (B, Se, d):
+    non-causal self-attention with rope over ``arange(Se)``, then the MLP,
+    per layer; the final norm."""
+    x = frames.to(mode.operand_dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for p in params["enc_layers"]:
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        out, _ = self_attention(p, h, cfg, positions=positions, causal=False,
+                                window=0, mode=mode)
+        x = x + out
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + mlp(p, h2, activation=cfg.ffn_activation, mode=mode)
+    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _aux_kv(params: Params, aux: Optional[torch.Tensor], cfg: ModelConfig,
+            mode: ComputeMode) -> Optional[torch.Tensor]:
+    """What the ``cross`` layers attend to: the encoder's output over the
+    frames, or the image tokens as they come."""
+    if not (cfg.is_encoder_decoder or cfg.num_image_tokens):
+        return None
+    if aux is None:
+        what = ("encoder frames (B, encoder_seq, d_model)"
+                if cfg.is_encoder_decoder
+                else "image tokens (B, num_image_tokens, d_model)")
+        raise ValueError(f"{cfg.name}: prefill needs aux= {what}")
+    if cfg.is_encoder_decoder:
+        return encode(params, aux, cfg, mode)
+    return aux.to(mode.operand_dtype)
+
+
 # ---------------------------------------------------------------------------
 # Serving: prefill + decode
 # ---------------------------------------------------------------------------
@@ -210,33 +424,69 @@ def cache_capacity(cfg: ModelConfig, kind: str, seq_len: int,
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                window_override: int = 0, dtype: torch.dtype = torch.bfloat16,
-               device: "str | torch.device" = "cuda") -> List[KVCache]:
-    """A zero decode cache for a context of ``seq_len``, one per layer."""
-    require_dense(cfg)
+               device: "str | torch.device" = "cuda") -> List[Any]:
+    """A zero decode cache for a context of ``seq_len``, one entry a layer:
+
+    * ``attn`` kinds: a :class:`KVCache` (a ring of the window's size for a
+      windowed layer);
+    * ``hybrid``: (KVCache, :class:`SSMState`);
+    * ``cross``: (KVCache, (k, v)) with the encoder's or image tokens'
+      fused K and V, ``encoder_seq or num_image_tokens`` long;
+    * ``mlstm``: :class:`MLSTMState`; ``slstm``: :class:`SLSTMState`.
+
+    Recurrent states are f32; conv tails and K/V are ``dtype``.
+    """
     width = cfg.num_kv_heads * cfg.resolved_head_dim
+    f32 = torch.float32
+    zeros = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
 
     def kv(kind):
         cap = cache_capacity(cfg, kind, seq_len, window_override)
-        return KVCache(*(torch.zeros((batch, cap, width), dtype=dtype,
-                                     device=device) for _ in range(2)))
-    return [kv(layer_kind(cfg, i)) for i in range(cfg.num_layers)]
+        return KVCache(zeros((batch, cap, width)), zeros((batch, cap, width)))
+
+    def layer(kind):
+        if kind in ("attn", "attn_local", "attn_global"):
+            return kv(kind)
+        if kind == "cross":
+            se = cfg.encoder_seq or cfg.num_image_tokens
+            return (kv(kind), (zeros((batch, se, width)),
+                               zeros((batch, se, width))))
+        if kind == "hybrid":
+            di = cfg.ssm.expand * cfg.d_model
+            n, cw = cfg.ssm.state_dim, cfg.ssm.conv_width
+            return (kv(kind), SSMState(h=zeros((batch, di, n), f32),
+                                       conv=zeros((batch, cw - 1, di))))
+        if kind == "mlstm":
+            di, h = 2 * cfg.d_model, cfg.num_heads
+            hd = di // h
+            return MLSTMState(c=zeros((batch, h, hd, hd), f32),
+                              n=zeros((batch, h, hd), f32),
+                              m=zeros((batch, h), f32),
+                              conv=zeros((batch, 3, di)))
+        if kind == "slstm":
+            d = cfg.d_model
+            return SLSTMState(*(zeros((batch, d), f32) for _ in range(4)))
+        raise ValueError(f"unknown block kind {kind!r}; known: {BLOCK_KINDS}")
+    return [layer(layer_kind(cfg, i)) for i in range(cfg.num_layers)]
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             capacity: Optional[int] = None,
+            aux: Optional[torch.Tensor] = None,
             mode: ComputeMode = ComputeMode.RELAXED,
-            window_override: int = 0
-            ) -> Tuple[torch.Tensor, List[KVCache]]:
+            window_override: int = 0) -> Tuple[torch.Tensor, List[Any]]:
     """Process the prompt: (B, S) tokens -> (last-token logits (B, V) in f32,
-    one decode cache per layer).  ``capacity`` (>= S, default S) sizes the
-    caches; a windowed layer keeps its last ``window`` tokens at slots
-    ``pos % window``."""
-    require_dense(cfg)
+    one decode cache per layer, as :func:`init_cache` lays them out).
+    ``capacity`` (>= S, default S) sizes the K/V caches; a windowed layer
+    keeps its last ``window`` tokens at slots ``pos % window``.  ``aux``:
+    the encoder frames (B, encoder_seq, d) of an encoder-decoder config, or
+    the image tokens (B, num_image_tokens, d) of a vision config."""
     b, s = tokens.shape
     capacity = capacity or s
     if capacity < s:
         raise ValueError(f"prefill of {s} tokens is longer than the cache "
                          f"capacity {capacity}")
+    aux_kv = _aux_kv(params, aux, cfg, mode)
     x = _embed_tokens(params, tokens, cfg, mode)
     positions = torch.arange(s, device=x.device)
 
@@ -252,27 +502,30 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     caches = []
     for i, p in enumerate(params["layers"]):
         kind = layer_kind(cfg, i)
-        x, kvc = apply_block(kind, p, x, cfg, positions=positions, mode=mode,
-                             window_override=window_override,
-                             return_cache=True)
-        caches.append(expand_kv(kvc, kind))
+        x, nc = apply_block(kind, p, x, cfg, positions=positions, mode=mode,
+                            window_override=window_override, aux_kv=aux_kv)
+        if kind in ("attn", "attn_local", "attn_global"):
+            nc = expand_kv(nc, kind)
+        elif kind in ("hybrid", "cross"):
+            nc = (expand_kv(nc[0], kind), nc[1])
+        caches.append(nc)
     return _logits(params, x[:, -1:], cfg, mode)[:, 0], caches
 
 
-def decode_step(params: Params, caches: List[KVCache], token: torch.Tensor,
+def decode_step(params: Params, caches: List[Any], token: torch.Tensor,
                 pos: int, cfg: ModelConfig, *,
                 mode: ComputeMode = ComputeMode.RELAXED,
-                window_override: int = 0
-                ) -> Tuple[torch.Tensor, List[KVCache]]:
+                window_override: int = 0) -> Tuple[torch.Tensor, List[Any]]:
     """One serving step: the (B, 1) token at position ``pos`` -> (B, V)
-    logits in f32.  Writes each layer's new K/V into ``caches`` in place and
-    returns them."""
-    require_dense(cfg)
+    logits in f32 and the layers' caches.  Each layer's new K/V is written
+    into its cache in place; recurrent states are returned anew."""
     pos = int(pos)
     x = _embed_tokens(params, token, cfg, mode)
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    new_caches = []
     for i, (p, cache) in enumerate(zip(params["layers"], caches)):
-        x, _ = apply_block(layer_kind(cfg, i), p, x, cfg, positions=positions,
-                           mode=mode, window_override=window_override,
-                           cache=cache, cache_pos=pos)
-    return _logits(params, x, cfg, mode)[:, 0], caches
+        x, nc = apply_block(layer_kind(cfg, i), p, x, cfg, positions=positions,
+                            mode=mode, window_override=window_override,
+                            cache=cache, cache_pos=pos)
+        new_caches.append(nc)
+    return _logits(params, x, cfg, mode)[:, 0], new_caches

@@ -1,0 +1,203 @@
+"""xLSTM blocks: mLSTM (matrix memory) and sLSTM (scalar memory with
+recurrence), after Beck et al., arXiv:2405.04517.
+
+The port of ``repro.nn.xlstm``.  Both use exponential gating with the
+max-stabilizer m_t; states start at ``m = -1e30``.  Prefill runs the mLSTM
+chunkwise (:func:`_mlstm_cell`: matmuls and cumulative sums inside a chunk,
+the (C, n, m) state carried across chunks), decode takes one step of the
+recurrence (:func:`_mlstm_step`).  The sLSTM is a step-by-step recurrence
+over time in both.
+
+Shapes: B batch, S time, H heads, hd = 2*d/H head dim, di = 2*d inner.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..core.precision import ComputeMode, f32_scalar, full_f32, mode_dot
+from .layers import rms_norm
+from .ssm import _causal_conv, _pad_time
+
+#: The stabilizer's start and the log input gate of a padded step.
+NEG_BIG = -1e30
+
+
+class MLSTMState(NamedTuple):
+    c: torch.Tensor        # (B, H, hd, hd) matrix memory
+    n: torch.Tensor        # (B, H, hd) normalizer
+    m: torch.Tensor        # (B, H) stabilizer
+    conv: torch.Tensor     # (B, cw-1, di) conv tail
+
+
+class SLSTMState(NamedTuple):
+    c: torch.Tensor        # (B, d)
+    n: torch.Tensor        # (B, d)
+    h: torch.Tensor        # (B, d)
+    m: torch.Tensor        # (B, d)
+
+
+def _mlstm_step(carry, xs):
+    """One step of the stabilized mLSTM recurrence (the decode path).
+    carry: (c, n, m); xs: q, k, v (B, H, hd) and log_i, log_f (B, H)."""
+    c, n, m = carry
+    qt, kt, vt, li, lf = xs
+    m_new = torch.maximum(lf + m, li)
+    i_p = torch.exp(li - m_new)[..., None]                # (B, H, 1)
+    f_p = torch.exp(lf + m - m_new)[..., None]
+    c = f_p[..., None] * c + i_p[..., None] * (vt[..., :, None] * kt[..., None, :])
+    n = f_p * n + i_p * kt
+    denom = torch.maximum(torch.abs(torch.sum(n * qt, dim=-1, keepdim=True)),
+                          torch.exp(-m_new)[..., None])
+    with full_f32():
+        y = torch.einsum("bhvk,bhk->bhv", c, qt) / denom
+    return (c, n, m_new), y
+
+
+def _mlstm_chunk(carry, qc, kc, vc, lic, lfc):
+    """One chunk of the chunkwise-parallel mLSTM (the reference's
+    ``chunk_body``): carry (c0, n0, m0); qc, kc, vc (B, L, H, hd); lic, lfc
+    (B, L, H).  Returns the chunk-end state and y (B, L, H, hd)."""
+    c0, n0, m0 = carry
+    f_cum = torch.cumsum(lfc, dim=1)                      # F_t (B, L, H)
+    a = lic - f_cum                                       # a_tau
+    m0r = m0[:, None]                                     # (B, 1, H)
+    m_run = torch.maximum(torch.cummax(a, dim=1).values, m0r)   # M_t
+    # Pairwise coefficient exp(a_tau - M_t) for tau <= t: (B, t, tau, H).
+    e = torch.exp(a[:, None, :, :] - m_run[:, :, None, :])
+    L = qc.shape[1]
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=qc.device))
+    e = torch.where(tri[None, :, :, None], e, torch.zeros_like(e))
+    scores = torch.einsum("bthd,bshd->btsh", qc, kc)      # q_t . k_tau
+    sv = torch.einsum("btsh,bshd->bthd", scores * e, vc)
+    inter = torch.exp(m0r - m_run)                        # (B, t, H)
+    q_c0 = torch.einsum("bthk,bhvk->bthv", qc, c0)        # q_t C0
+    y_num = sv + inter[..., None] * q_c0
+    n_t = inter[..., None] * n0[:, None] + torch.einsum("btsh,bshd->bthd", e, kc)
+    m_t = f_cum + m_run
+    denom = torch.maximum(torch.abs(torch.sum(n_t * qc, dim=-1, keepdim=True)),
+                          torch.exp(-m_t)[..., None])
+    y = y_num / denom
+    # Chunk-end state: coefficients exp(a_tau - M_L).
+    end = torch.exp(m0 - m_run[:, -1])                    # (B, H)
+    e_l = torch.exp(a - m_run[:, -1:, :])                 # (B, L, H)
+    c_new = end[..., None, None] * c0 + \
+        torch.einsum("bshv,bshk->bhvk", e_l[..., None] * vc, kc)
+    n_new = end[..., None] * n0 + torch.einsum("bsh,bshk->bhk", e_l, kc)
+    return (c_new, n_new, m_t[:, -1]), y
+
+
+def _mlstm_cell(q, k, v, log_i, log_f, state, *, chunk: int = 256):
+    """Chunkwise-parallel stabilized mLSTM, an exact reformulation of the
+    recurrence (see the reference's docstring for the algebra).
+
+    q, k, v: (B, S, H, hd); log_i, log_f: (B, S, H); ``state`` carries
+    (c, n, m).  S == 1 takes :func:`_mlstm_step`.  Otherwise the time axis is
+    padded to a multiple of the chunk with inert steps (log_i = -1e30,
+    log_f = 0).  Returns (y, c, n, m).
+    """
+    b, s, h, hd = q.shape
+    if s == 1:
+        (c, n, m), y = _mlstm_step((state.c, state.n, state.m),
+                                   (q[:, 0], k[:, 0], v[:, 0],
+                                    log_i[:, 0], log_f[:, 0]))
+        return y[:, None], c, n, m
+
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    q, k, v, log_f = (_pad_time(t, pad) for t in (q, k, v, log_f))
+    log_i = _pad_time(log_i, pad, NEG_BIG)
+    carry = (state.c, state.n, state.m)
+    ys = []
+    with full_f32():
+        for c0 in range(0, s + pad, chunk):
+            sl = slice(c0, c0 + chunk)
+            carry, y = _mlstm_chunk(carry, q[:, sl], k[:, sl], v[:, sl],
+                                    log_i[:, sl], log_f[:, sl])
+            ys.append(y)
+    c, n, m = carry
+    return torch.cat(ys, dim=1)[:, :s], c, n, m
+
+
+def mlstm_block(params: dict, x: torch.Tensor, cfg, *,
+                state: Optional[MLSTMState] = None,
+                mode: ComputeMode = ComputeMode.RELAXED):
+    """Pre-LN mLSTM block with x2 up-projection and gated output; returns
+    (out, the state after the last step)."""
+    b, s, d = x.shape
+    h = cfg.num_heads
+    di = 2 * d
+    hd = di // h
+    dev = x.device
+
+    if state is None:
+        cw = params["conv_w"].shape[0]
+        state = MLSTMState(
+            c=torch.zeros((b, h, hd, hd), dtype=torch.float32, device=dev),
+            n=torch.zeros((b, h, hd), dtype=torch.float32, device=dev),
+            m=torch.full((b, h), NEG_BIG, dtype=torch.float32, device=dev),
+            conv=torch.zeros((b, cw - 1, di), dtype=mode.operand_dtype,
+                             device=dev))
+
+    xz = mode_dot(x, params["w_in"], mode)                # (B, S, 2di)
+    xi, z = torch.chunk(xz, 2, dim=-1)
+    xc, new_tail = _causal_conv(xi, params["conv_w"].to(xi.dtype), state.conv)
+    xc = F.silu(xc)
+
+    q = mode_dot(xc, params["wq"], mode).reshape(b, s, h, hd).float()
+    k = mode_dot(xc, params["wk"], mode).reshape(b, s, h, hd).float() \
+        / f32_scalar(math.sqrt(hd), dev)
+    v = mode_dot(xi, params["wv"], mode).reshape(b, s, h, hd).float()
+    log_i = mode_dot(xi, params["w_i"], ComputeMode.PRECISE).float() \
+        .reshape(b, s, h)
+    log_f = F.logsigmoid(mode_dot(xi, params["w_f"], ComputeMode.PRECISE)
+                         .float().reshape(b, s, h))
+
+    y, c, n, m = _mlstm_cell(q, k, v, log_i, log_f, state)
+    y = rms_norm(y.reshape(b, s, h, hd), params["cell_norm"],
+                 cfg.norm_eps).reshape(b, s, di)
+    y = y.to(mode.operand_dtype) * F.silu(z)
+    state = MLSTMState(c=c, n=n, m=m, conv=new_tail)
+    return mode_dot(y, params["w_out"], mode), state
+
+
+def slstm_block(params: dict, x: torch.Tensor, cfg, *,
+                state: Optional[SLSTMState] = None,
+                mode: ComputeMode = ComputeMode.RELAXED):
+    """sLSTM with diagonal recurrent gate weights + a 4/3 gated FFN;
+    returns (out, the state after the last step)."""
+    b, s, d = x.shape
+    if state is None:
+        zeros = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        state = SLSTMState(c=zeros, n=zeros, h=zeros,
+                           m=torch.full((b, d), NEG_BIG, dtype=torch.float32,
+                                        device=x.device))
+
+    gates = mode_dot(x, params["w_gates"], mode).float()  # (B, S, 4d)
+    r = params["r_gates"].float()                          # (4, d)
+    c, n, h_prev, m = state
+    hs = []
+    for t in range(s):
+        gz, gi, gf, go = torch.chunk(gates[:, t], 4, dim=-1)   # each (B, d)
+        gz = gz + r[0] * h_prev
+        gi = gi + r[1] * h_prev
+        gf = gf + r[2] * h_prev
+        go = go + r[3] * h_prev
+        log_f = F.logsigmoid(gf)
+        m_new = torch.maximum(log_f + m, gi)
+        i_p = torch.exp(gi - m_new)
+        f_p = torch.exp(log_f + m - m_new)
+        c = f_p * c + i_p * torch.tanh(gz)
+        n = f_p * n + i_p
+        h_prev = torch.sigmoid(go) * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        hs.append(h_prev)
+    y = torch.stack(hs, dim=1).to(mode.operand_dtype)     # (B, S, d)
+    y = rms_norm(y, params["cell_norm"], cfg.norm_eps)
+    # The post-cell gated FFN, factor 4/3 (the xLSTM paper's sLSTM block).
+    hgate = F.gelu(mode_dot(y, params["w_ff_g"], mode), approximate="tanh") \
+        * mode_dot(y, params["w_ff_u"], mode)
+    return mode_dot(hgate, params["w_ff_d"], mode), SLSTMState(c, n, h_prev, m)

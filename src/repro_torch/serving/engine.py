@@ -1,9 +1,10 @@
-"""Batched LM serving engine: prefill + a decode loop over a KV cache.
+"""Batched LM serving engine: prefill + a decode loop over a KV/state cache.
 
 The port of ``repro.serving.engine``.  ``ServingEngine`` holds the model's
 parameters on an explicit ``device`` (the card by default) and serves
-batches of prompts: greedy or temperature sampling, per-request EOS
-tracking.  Each :meth:`~ServingEngine.generate` prefills anew.
+batches of prompts of any config family: greedy or temperature sampling,
+per-request EOS tracking.  Each :meth:`~ServingEngine.generate` prefills
+anew.
 
 Sampling takes an explicit ``torch.Generator``.  Its seed is the base: step
 ``i`` draws from a fresh generator seeded with :func:`fold_seed` of (base,
@@ -59,25 +60,25 @@ class ServingEngine:
                  mode: ComputeMode = ComputeMode.RELAXED,
                  window_override: int = 0,
                  device: "str | torch.device" = "cuda"):
-        M.require_dense(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
-        self.params = {
-            k: ([{n: t.to(self.device) for n, t in layer.items()} for layer in v]
-                if k == "layers" else v.to(self.device))
-            for k, v in params.items()}
+        self.params = M.tree_map(lambda t: t.to(self.device), params)
         self.max_context = max_context
         self.mode = mode
         self.window_override = window_override
 
     def generate(self, prompts, *, max_new_tokens: int,
+                 aux=None,
                  eos_id: Optional[int] = None,
                  temperature: float = 0.0,
                  generator: Optional[torch.Generator] = None
                  ) -> GenerationResult:
-        """prompts: (B, S) integer tokens.  Greedy when ``temperature`` is 0
-        or no ``generator`` is given."""
+        """prompts: (B, S) integer tokens.  ``aux``: the encoder frames or
+        image tokens (B, S_aux, d_model) of a config with ``cross`` layers.
+        Greedy when ``temperature`` is 0 or no ``generator`` is given."""
         prompts = torch.as_tensor(prompts, device=self.device)
+        if aux is not None:
+            aux = torch.as_tensor(aux, device=self.device)
         b, s = prompts.shape
         if s + max_new_tokens > self.max_context:
             raise ValueError(f"context overflow: {s} + {max_new_tokens} > "
@@ -88,7 +89,7 @@ class ServingEngine:
             t0 = time.perf_counter()
             logits, caches = M.prefill(
                 self.params, prompts, self.cfg, capacity=self.max_context,
-                mode=self.mode, window_override=self.window_override)
+                aux=aux, mode=self.mode, window_override=self.window_override)
             # The first token is sampled from the prefill's logits, with
             # step 0's seed (never the base seed itself).
             tok = self._sample(logits, temperature,

@@ -67,8 +67,7 @@ def test_dense_lm_on_the_card_matches_the_cpu(cuda, name):
     cfg = get_smoke_config(name)
     mode = ComputeMode.RELAXED
     params = M.init_params(cfg, 0, "cuda", torch.bfloat16)
-    cpu = {k: ([{n: t.cpu() for n, t in layer.items()} for layer in v]
-               if k == "layers" else v.cpu()) for k, v in params.items()}
+    cpu = M.tree_map(lambda t: t.cpu(), params)
     toks = torch.randint(0, cfg.vocab_size, (2, 16),
                          generator=torch.Generator().manual_seed(1))
     wo = 8 if cfg.long_context == "sliding_override" else 0

@@ -29,42 +29,20 @@ from repro.nn import layers as jax_layers
 from repro.nn import model as JM
 from repro.serving.engine import ServingEngine as JaxServingEngine
 from repro_torch import configs
-from repro_torch.core.precision import ComputeMode, mode_tolerance
+from repro_torch.core.precision import ComputeMode
 from repro_torch.launch import serve
 from repro_torch.nn import attention, layers
 from repro_torch.nn import model as M
 from repro_torch.serving import ServingEngine
 
-from _torch_parity import as_np, assert_close
+from _torch_parity import LM_RTOL, as_np, assert_close, check_greedy
+from _torch_parity import lm_np_params as _np_params
 
 jax.config.update("jax_platform_name", "cpu")
 
 DENSE = ["qwen2-7b", "qwen3-32b", "command-r-plus-104b", "gemma2-9b"]
-NON_DENSE = [n for n in configs.all_arch_names() if n not in DENSE]
 MODES = [ComputeMode.RELAXED, ComputeMode.PRECISE]
 B, S = 2, 16
-LM_RTOL = {ComputeMode.RELAXED: mode_tolerance(ComputeMode.RELAXED),
-           ComputeMode.PRECISE: 1e-5}
-_VECTORS = {"ln1", "ln2", "ln1_post", "ln2_post", "final_norm", "qnorm",
-            "knorm", "bq", "bk", "bv"}
-
-
-def _np_params(cfg, seed=0):
-    """Numpy weights in the reference's layout (``blocks`` stacked (G, ...)):
-    matrices normal / sqrt(fan_in), norm scales and biases 0.1 x normal (the
-    reference's own init sets them to zero, which would hide ``1 + scale``
-    and the biases)."""
-    rng = np.random.default_rng(seed)
-
-    def draw(path, leaf):
-        name = path[-1].key
-        if name in _VECTORS:
-            return (0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
-        fan_in = leaf.shape[-1] if name == "embed" else leaf.shape[-2]
-        return (rng.standard_normal(leaf.shape) / math.sqrt(fan_in)) \
-            .astype(np.float32)
-    return jax.tree_util.tree_map_with_path(
-        draw, JM.abstract_params(cfg, jnp.float32))
 
 
 @pytest.fixture(scope="module", params=DENSE)
@@ -137,7 +115,7 @@ def test_prefill_and_decode_match_the_reference(dense, mode):
         assert_close(c.k, ref.k[i // period], mode, rtol=LM_RTOL[mode])
         assert_close(c.v, ref.v[i // period], mode, rtol=LM_RTOL[mode])
 
-    _check_greedy(logits, jlogits, LM_RTOL[mode])
+    check_greedy(logits, jlogits, LM_RTOL[mode])
     for step in range(4):
         pos = S + step
         tok = toks[:, pos:pos + 1]
@@ -146,15 +124,7 @@ def test_prefill_and_decode_match_the_reference(dense, mode):
         jlogits, jcaches = _jax_decode(jparams, jcaches, jnp.asarray(tok),
                                        jnp.int32(pos), jcfg, jmode, 0)
         assert_close(logits, jlogits, mode, rtol=LM_RTOL[mode])
-        _check_greedy(logits, jlogits, LM_RTOL[mode])
-
-
-def _check_greedy(logits, jlogits, rtol):
-    ours, ref = as_np(logits), as_np(jlogits)
-    top2 = np.sort(ref, axis=-1)[:, -2:]
-    limit = rtol * np.maximum(np.abs(ref).max(-1), 1.0)
-    clear = (top2[:, 1] - top2[:, 0]) > 2 * limit
-    assert (ours.argmax(-1)[clear] == ref.argmax(-1)[clear]).all()
+        check_greedy(logits, jlogits, LM_RTOL[mode])
 
 
 def test_sliding_window_decode_ring_buffer(dense):
@@ -199,15 +169,24 @@ def test_prefill_ring_layout_matches_reference():
                      rtol=LM_RTOL[ComputeMode.PRECISE])
 
 
-@pytest.mark.parametrize("name", NON_DENSE)
-def test_non_dense_config_raises(name):
-    cfg = configs.get_smoke_config(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        M.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        M.prefill({}, torch.zeros((1, 4), dtype=torch.long), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        ServingEngine(cfg, {}, max_context=8, device="cpu")
+@pytest.mark.parametrize("stage", ["init_params", "num_params", "init_cache",
+                                   "prefill"])
+def test_unknown_block_kind_raises(stage):
+    """A block kind outside the families raises ValueError naming it, as
+    the reference's ``_block_defs`` and ``apply_block`` do."""
+    cfg = dataclasses.replace(configs.get_smoke_config("qwen2-7b"),
+                              block_pattern=("attn", "bogus"))
+    good = configs.get_smoke_config("qwen2-7b")
+    calls = {
+        "init_params": lambda: M.init_params(cfg, 0, device="cpu"),
+        "num_params": lambda: M.num_params(cfg),
+        "init_cache": lambda: M.init_cache(cfg, 1, 8, device="cpu"),
+        # The weights of a valid config; the bogus kind is met in apply_block.
+        "prefill": lambda: M.prefill(M.init_params(good, 0, device="cpu"),
+                                     torch.zeros((1, 4), dtype=torch.long), cfg),
+    }
+    with pytest.raises(ValueError, match="unknown block kind 'bogus'"):
+        calls[stage]()
 
 
 # --------------------------------------------------------- the layers -----
@@ -437,8 +416,10 @@ def test_serving_engine_sampling_seeds_unique_per_step(qwen_smoke):
     assert not np.array_equal(res.tokens, other.tokens)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", configs.all_arch_names())
 def test_serve_launcher_runs_each_dense_arch(name, capsys):
+    """Every config of every family, at 2 layers (or one pattern period)
+    of width 64 on the CPU; cross configs get zero frames / image tokens."""
     res = serve.main(["--arch", name, "--layers", "2", "--d-model", "64",
                       "--batch", "2", "--prompt-len", "8", "--gen", "4",
                       "--device", "cpu"])
