@@ -16,7 +16,10 @@ The counterpart of ``repro.core.precision``.  Modes, fastest last:
 PyTorch runs f32 convolutions in TF32 on the card by default
 (``torch.backends.cudnn.allow_tf32``).  :func:`full_f32` turns TF32 off for
 matmul and cuDNN for the duration of one call, and every PRECISE library
-call here runs inside it.
+call here runs inside it.  The flag is global and autograd runs a product's
+backward after the block has exited, so the products that training
+differentiates go through :func:`f32_matmul` / :func:`f32_einsum`, whose
+backward products run inside :func:`full_f32` as well.
 """
 from __future__ import annotations
 
@@ -80,6 +83,82 @@ def full_f32() -> Iterator[None]:
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul_flag
         torch.backends.cudnn.allow_tf32 = cudnn_flag
+
+
+def _recording(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _F32Matmul(torch.autograd.Function):
+    """``torch.matmul`` with TF32 off in the forward and in the backward."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with full_f32():
+            return torch.matmul(a, b)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        with full_f32():
+            if ctx.needs_input_grad[0]:
+                ga = torch.matmul(g, b.transpose(-1, -2)).sum_to_size(a.shape)
+            if ctx.needs_input_grad[1]:
+                if b.ndim == 2:     # one product over every leading row, as mm's
+                    gb = a.reshape(-1, a.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+                else:
+                    gb = torch.matmul(a.transpose(-1, -2), g).sum_to_size(b.shape)
+        return ga, gb
+
+
+class _F32Einsum(torch.autograd.Function):
+    """A two-operand ``torch.einsum`` with TF32 off in the forward and in
+    the backward, whose operand gradients are the einsums
+    ``out,y->x`` and ``out,x->y``."""
+
+    @staticmethod
+    def forward(ctx, eq, x, y):
+        ctx.eq = eq
+        ctx.save_for_backward(x, y)
+        with full_f32():
+            return torch.einsum(eq, x, y)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        ins, out = ctx.eq.split("->")
+        sx, sy = ins.split(",")
+        gx = gy = None
+        with full_f32():
+            if ctx.needs_input_grad[1]:
+                gx = torch.einsum(f"{out},{sy}->{sx}", g, y)
+            if ctx.needs_input_grad[2]:
+                gy = torch.einsum(f"{out},{sx}->{sy}", g, x)
+        return None, gx, gy
+
+
+def f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul(a, b)`` with TF32 off, forward and backward (``b`` at
+    least 2-D, broadcasting as matmul does).  Where autograd is not
+    recording, it is the plain call inside :func:`full_f32`."""
+    if not _recording(a, b):
+        with full_f32():
+            return torch.matmul(a, b)
+    return _F32Matmul.apply(a, b)
+
+
+def f32_einsum(eq: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, x, y)`` with TF32 off, forward and backward.
+    ``eq`` is explicit (``->``); every index of an operand appears in the
+    other operand or in the output, so each gradient is one einsum."""
+    if not _recording(x, y):
+        with full_f32():
+            return torch.einsum(eq, x, y)
+    return _F32Einsum.apply(eq, x, y)
 
 
 @dataclass(frozen=True)
@@ -230,16 +309,15 @@ def resolve_weight(w: Weight, mode: ComputeMode) -> torch.Tensor:
 def mode_dot(a: torch.Tensor, b: Weight, mode: ComputeMode) -> torch.Tensor:
     """``a @ b`` under a compute mode; returns ``mode.out_dtype``.
 
-    PRECISE is an f32 product with TF32 off.  The other modes multiply bf16
-    operands with f32 accumulation inside the library call and round the
-    result to bf16 (the JAX package's CPU and TPU paths do the same for a
-    bf16-preferred product).
+    PRECISE is an f32 product with TF32 off, and so is its backward
+    (:func:`f32_matmul`).  The other modes multiply bf16 operands with f32
+    accumulation inside the library call and round the result to bf16 (the
+    JAX package's CPU and TPU paths do the same for a bf16-preferred
+    product).
     """
     a = prepare_operand(a, mode)
     b = resolve_weight(b, mode)
-    with full_f32():
-        out = torch.matmul(a, b)
-    return out.to(mode.out_dtype)
+    return f32_matmul(a, b).to(mode.out_dtype)
 
 
 def mode_tolerance(mode: ComputeMode) -> float:

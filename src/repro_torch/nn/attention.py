@@ -13,7 +13,10 @@ the reference's invalid-slot semantics:
 * operands keep their incoming dtype (bf16 under RELAXED) and products
   accumulate in f32, as the reference's ``preferred_element_type=f32``
   does: bf16 operands are widened (exactly) and multiplied in f32 with
-  TF32 off;
+  TF32 off (:func:`f32_matmul`, the backward's products too);
+* where autograd records, each query chunk and, inside it, each key chunk
+  is checkpointed, as the reference's nested ``jax.checkpoint``: the
+  backward keeps no (B, KV, rep, q_chunk, k_chunk) score block;
 * a masked score is ``NEG_INF = -0.7 * f32max``, a slot at position < 0 is
   unwritten and never attended to, and a fully masked row divides by
   ``max(l, 1e-30)``.
@@ -25,8 +28,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..core.precision import ComputeMode, full_f32, mode_dot
-from .layers import rms_norm, rope, softcap
+from ..core.precision import ComputeMode, f32_matmul, mode_dot
+from .layers import checkpoint_if_recording, rms_norm, rope, softcap
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -89,34 +92,39 @@ def _chunk_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kg = k.to(cdt).permute(0, 2, 1, 3).float()           # (B, KV, Sk', hd)
     vg = v.to(cdt).permute(0, 2, 1, 3).float()
 
-    outs = []
-    with full_f32():
-        for i in range(n_q):
-            q_blk = qg[:, :, :, i * q_chunk:(i + 1) * q_chunk]
-            qp = q_pos[i * q_chunk:(i + 1) * q_chunk]
-            m = torch.full((b, kv, rep, q_chunk), NEG_INF, device=dev)
-            l = torch.zeros((b, kv, rep, q_chunk), device=dev)
-            acc = torch.zeros((b, kv, rep, q_chunk, hd), device=dev)
-            for j in range(n_k):
-                k_blk = kg[:, :, j * k_chunk:(j + 1) * k_chunk]
-                v_blk = vg[:, :, j * k_chunk:(j + 1) * k_chunk]
-                kp = k_pos[j * k_chunk:(j + 1) * k_chunk]
-                s = torch.matmul(q_blk, k_blk[:, :, None].transpose(-1, -2))
-                s = softcap(s, logit_cap)
-                valid = (kp[None, :] >= 0)
-                if causal:
-                    valid = valid & (kp[None, :] <= qp[:, None])
-                if window > 0:
-                    valid = valid & (kp[None, :] > qp[:, None] - window)
-                s = s.masked_fill(~valid, NEG_INF)
-                m_cur = torch.maximum(m, s.amax(dim=-1))
-                p = torch.exp(s - m_cur[..., None])
-                alpha = torch.exp(m - m_cur)
-                l = l * alpha + p.sum(dim=-1)
-                acc = acc * alpha[..., None] + torch.matmul(
-                    p.to(cdt).float(), v_blk[:, :, None])
-                m = m_cur
-            outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    def key_step(q_blk, kg, vg, qp, m, l, acc, j):
+        k_blk = kg[:, :, j * k_chunk:(j + 1) * k_chunk]
+        v_blk = vg[:, :, j * k_chunk:(j + 1) * k_chunk]
+        kp = k_pos[j * k_chunk:(j + 1) * k_chunk]
+        s = f32_matmul(q_blk, k_blk[:, :, None].transpose(-1, -2))
+        s = softcap(s, logit_cap)
+        valid = (kp[None, :] >= 0)
+        if causal:
+            valid = valid & (kp[None, :] <= qp[:, None])
+        if window > 0:
+            valid = valid & (kp[None, :] > qp[:, None] - window)
+        s = s.masked_fill(~valid, NEG_INF)
+        m_cur = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_cur[..., None])
+        alpha = torch.exp(m - m_cur)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + f32_matmul(p.to(cdt).float(),
+                                                  v_blk[:, :, None])
+        return m_cur, l, acc
+
+    def query_rows(q_blk, kg, vg, i):
+        qp = q_pos[i * q_chunk:(i + 1) * q_chunk]
+        m = torch.full((b, kv, rep, q_chunk), NEG_INF, device=dev)
+        l = torch.zeros((b, kv, rep, q_chunk), device=dev)
+        acc = torch.zeros((b, kv, rep, q_chunk, hd), device=dev)
+        for j in range(n_k):
+            m, l, acc = checkpoint_if_recording(key_step, q_blk, kg, vg, qp,
+                                                m, l, acc, j)
+        return acc / torch.clamp(l, min=1e-30)[..., None]
+
+    outs = [checkpoint_if_recording(
+        query_rows, qg[:, :, :, i * q_chunk:(i + 1) * q_chunk], kg, vg, i)
+        for i in range(n_q)]
     out = torch.cat(outs, dim=3)                          # (B,KV,rep,Sq',hd)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq + qpad, h, hd)[:, :sq]
     return out.to(q.dtype)

@@ -10,8 +10,20 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core.precision import ComputeMode, mode_dot
+
+
+def checkpoint_if_recording(fn, *args):
+    """``fn(*args)``, checkpointed where autograd records through an
+    argument: the backward recomputes ``fn`` instead of keeping its
+    intermediates (the reference's inner ``jax.checkpoint``).  Elsewhere
+    (serving, ``inference_mode``) the plain call."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -20,20 +20,29 @@ encoder's layers are ``params["enc_layers"]``) and runs them in a Python
 loop.  :func:`params_from_reference` unstacks the reference's tree into that
 form, which is how the tests run both packages on the same weights.  The
 reference's sharding constraints are the identity on one card and are not
-ported.  Training (``forward``/``loss_fn``) waits for the training slice.
+ported.
+
+Training: :func:`forward` (logits) and :func:`loss_fn` (chunked
+cross-entropy) run the same blocks with autograd recording; each layer is
+checkpointed (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
+on each scanned period), or, under ``cfg.remat_policy == "dots"``, keeps its
+2-D matrix products and recomputes the rest.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core.precision import ComputeMode
 from .attention import KVCache, cross_attention, self_attention
 from .config import ModelConfig
-from .layers import embed, mlp, rms_norm, unembed
+from .layers import checkpoint_if_recording, embed, mlp, rms_norm, unembed
 from .moe import moe_ffn
 from .ssm import SSMState, mamba_mixer
 from .xlstm import MLSTMState, SLSTMState, mlstm_block, slstm_block
@@ -371,12 +380,17 @@ def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     return x
 
 
-def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig,
-            mode: ComputeMode) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+def _unembed(params: Params, x: torch.Tensor, cfg: ModelConfig,
+             mode: ComputeMode) -> torch.Tensor:
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return unembed(x, head, tied=cfg.tie_embeddings,
                    final_cap=cfg.final_logit_softcap, mode=mode)
+
+
+def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig,
+            mode: ComputeMode) -> torch.Tensor:
+    return _unembed(params, rms_norm(x, params["final_norm"], cfg.norm_eps),
+                    cfg, mode)
 
 
 def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
@@ -397,7 +411,7 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
 
 
 def _aux_kv(params: Params, aux: Optional[torch.Tensor], cfg: ModelConfig,
-            mode: ComputeMode) -> Optional[torch.Tensor]:
+            mode: ComputeMode, caller: str) -> Optional[torch.Tensor]:
     """What the ``cross`` layers attend to: the encoder's output over the
     frames, or the image tokens as they come."""
     if not (cfg.is_encoder_decoder or cfg.num_image_tokens):
@@ -406,10 +420,99 @@ def _aux_kv(params: Params, aux: Optional[torch.Tensor], cfg: ModelConfig,
         what = ("encoder frames (B, encoder_seq, d_model)"
                 if cfg.is_encoder_decoder
                 else "image tokens (B, num_image_tokens, d_model)")
-        raise ValueError(f"{cfg.name}: prefill needs aux= {what}")
+        raise ValueError(f"{cfg.name}: {caller} needs aux= {what}")
     if cfg.is_encoder_decoder:
         return encode(params, aux, cfg, mode)
     return aux.to(mode.operand_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Training: forward + loss
+# ---------------------------------------------------------------------------
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of 2-D matrix products, recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpoint_layer(cfg: ModelConfig, fn: Callable, x: torch.Tensor):
+    """``fn(x)`` under the config's layer checkpoint: everything recomputed
+    in the backward (``"full"``), or all but the 2-D products (``"dots"``)."""
+    if cfg.remat_policy == "dots":
+        return checkpoint(fn, x, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _save_dots))
+    return checkpoint(fn, x, use_reentrant=False)
+
+
+def _hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            aux: Optional[torch.Tensor], mode: ComputeMode,
+            window_override: int, remat: bool, caller: str) -> torch.Tensor:
+    """Embedding, every layer (each layer's cache dropped) and the final
+    norm: (B, S) tokens -> (B, S, d) in the mode's operand dtype."""
+    aux_kv = _aux_kv(params, aux, cfg, mode, caller)
+    x = _embed_tokens(params, tokens, cfg, mode)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    for i, p in enumerate(params["layers"]):
+        def layer(x, p=p, kind=layer_kind(cfg, i)):
+            return apply_block(kind, p, x, cfg, positions=positions, mode=mode,
+                               window_override=window_override, aux_kv=aux_kv)[0]
+        x = _checkpoint_layer(cfg, layer, x) if remat and torch.is_grad_enabled() \
+            else layer(x)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            aux: Optional[torch.Tensor] = None,
+            mode: ComputeMode = ComputeMode.RELAXED,
+            window_override: int = 0, remat: bool = True) -> torch.Tensor:
+    """Training/eval forward: (B, S) tokens -> (B, S, V) logits in f32.
+
+    ``aux``: the encoder frames or image tokens (B, S_aux, d) of a config
+    with ``cross`` layers, as :func:`prefill` takes them.  ``remat``: where
+    autograd records, checkpoint each layer (the backward recomputes it)."""
+    x = _hidden(params, tokens, cfg, aux=aux, mode=mode,
+                window_override=window_override, remat=remat, caller="forward")
+    return _unembed(params, x, cfg, mode)
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: ModelConfig, *, aux: Optional[torch.Tensor] = None,
+            mode: ComputeMode = ComputeMode.RELAXED,
+            chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross-entropy over the labels >= 0 (a scalar f32).
+
+    The sequence is padded to a multiple of ``chunk`` with labels -1; the
+    logits, their logsumexp and the gold logit are taken ``chunk`` positions
+    at a time, each chunk checkpointed, so the whole (B, S, V) tensor never
+    exists (at vocab 152k and 4 x 1024 tokens it would be 2.5 GB in f32).
+    Layers are checkpointed as :func:`forward`'s ``remat``."""
+    x = _hidden(params, tokens, cfg, aux=aux, mode=mode, window_override=0,
+                remat=True, caller="loss_fn")
+    b, s = tokens.shape
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        x = torch.cat([x, x.new_zeros((b, pad, x.shape[2]))], dim=1)
+        labels = torch.cat([labels, labels.new_full((b, pad), -1)], dim=1)
+
+    def chunk_loss(xc, lc):
+        logits = _unembed(params, xc, cfg, mode)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, torch.clamp(lc, min=0).long()[..., None])[..., 0]
+        valid = (lc >= 0).float()
+        return torch.sum((logz - gold) * valid), torch.sum(valid)
+
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s + pad, chunk):
+        nll, n = checkpoint_if_recording(chunk_loss, x[:, c0:c0 + chunk],
+                                         labels[:, c0:c0 + chunk])
+        tot, cnt = tot + nll, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -486,7 +589,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     if capacity < s:
         raise ValueError(f"prefill of {s} tokens is longer than the cache "
                          f"capacity {capacity}")
-    aux_kv = _aux_kv(params, aux, cfg, mode)
+    aux_kv = _aux_kv(params, aux, cfg, mode, "prefill")
     x = _embed_tokens(params, tokens, cfg, mode)
     positions = torch.arange(s, device=x.device)
 

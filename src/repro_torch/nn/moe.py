@@ -20,7 +20,7 @@ from typing import Tuple
 
 import torch
 
-from ..core.precision import ComputeMode, full_f32, mode_dot
+from ..core.precision import ComputeMode, f32_matmul, mode_dot
 from .layers import _activation
 
 
@@ -69,8 +69,9 @@ def assign_slots(top_idx: torch.Tensor, num_experts: int, capacity: int
 def moe_ffn(params: dict, x: torch.Tensor, cfg, *,
             mode: ComputeMode = ComputeMode.RELAXED) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d).  params: router (d, E), wg/wu (E, d, f),
-    wd (E, f, d).  (The reference's ``return_aux`` serves training's loss,
-    which the port does not have yet.)"""
+    wd (E, f, d).  The reference's ``return_aux`` (the load-balance term)
+    is not ported: nothing in the reference calls it, and its ``loss_fn``
+    is cross-entropy only."""
     moe = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -94,11 +95,10 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg, *,
     # Grouped GEMM across experts (a gated MLP per expert).
     act = _activation(cfg.ffn_activation)
     wg, wu, wd = (params[n].to(mode.operand_dtype) for n in ("wg", "wu", "wd"))
-    with full_f32():
-        hg = torch.matmul(buf, wg).to(mode.accum_dtype)         # (E, C, f)
-        hu = torch.matmul(buf, wu).to(mode.accum_dtype)
-        hout = (act(hg) * hu).to(mode.operand_dtype)
-        yb = torch.matmul(hout, wd)                             # (E, C, d)
+    hg = f32_matmul(buf, wg).to(mode.accum_dtype)               # (E, C, f)
+    hu = f32_matmul(buf, wu).to(mode.accum_dtype)
+    hout = (act(hg) * hu).to(mode.operand_dtype)
+    yb = f32_matmul(hout, wd)                                   # (E, C, d)
 
     # Gather back, weighted by the router's probabilities.
     y_tok = yb[e_flat, slot_c]                                  # (T*k, d)

@@ -19,7 +19,8 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from ..core.precision import ComputeMode, full_f32, mode_dot
+from ..core.precision import ComputeMode, f32_einsum, mode_dot
+from .layers import checkpoint_if_recording
 
 
 class SSMState(NamedTuple):
@@ -134,29 +135,35 @@ def mamba_mixer(params: dict, x: torch.Tensor, cfg, *,
 
     h = state.h if state is not None else \
         torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
-    with full_f32():
-        if s == 1:   # decode: one recurrence step
-            decay = torch.exp(dt[..., None] * a)                 # (B, 1, di, N)
-            inc = (dt * xf)[..., None] * bmat[:, :, None, :]
-            h = decay[:, 0] * h + inc[:, 0]
-            y = torch.einsum("bdn,bn->bd", h, cmat[:, 0])[:, None]
-        else:
-            # One chunk's (B, chunk, di, N) gate tensors at a time; the last
-            # chunk is zero-padded (decay 1, increment 0), as the reference
-            # pads it, so its state is the scan's last element.
-            chunk = min(256, s)
-            pad = (-s) % chunk
-            dt_c, x_c, b_c, c_c = (_pad_time(t, pad) for t in (dt, xf, bmat, cmat))
-            ys = []
-            for c0 in range(0, s + pad, chunk):
-                dt_b, x_b = dt_c[:, c0:c0 + chunk], x_c[:, c0:c0 + chunk]
-                bm_b, cm_b = b_c[:, c0:c0 + chunk], c_c[:, c0:c0 + chunk]
-                decay = torch.exp(dt_b[..., None] * a)
-                inc = (dt_b * x_b)[..., None] * bm_b[:, :, None, :]
-                h_all = _ssm_scan(decay, inc, h)
-                ys.append(torch.einsum("bsdn,bsn->bsd", h_all, cm_b))
-                h = h_all[:, -1]
-            y = torch.cat(ys, dim=1)[:, :s]
+    if s == 1:   # decode: one recurrence step
+        decay = torch.exp(dt[..., None] * a)                     # (B, 1, di, N)
+        inc = (dt * xf)[..., None] * bmat[:, :, None, :]
+        h = decay[:, 0] * h + inc[:, 0]
+        y = f32_einsum("bdn,bn->bd", h, cmat[:, 0])[:, None]
+    else:
+        # One chunk's (B, chunk, di, N) gate tensors at a time; the last
+        # chunk is zero-padded (decay 1, increment 0), as the reference
+        # pads it, so its state is the scan's last element.  Where autograd
+        # records, each chunk is checkpointed (the reference's
+        # ``jax.checkpoint`` on ``chunk_body``): the backward keeps no
+        # chunk's h_all, decay or increment.
+        chunk = min(256, s)
+        pad = (-s) % chunk
+        dt_c, x_c, b_c, c_c = (_pad_time(t, pad) for t in (dt, xf, bmat, cmat))
+
+        def chunk_body(h, a, dt_b, x_b, bm_b, cm_b):
+            decay = torch.exp(dt_b[..., None] * a)
+            inc = (dt_b * x_b)[..., None] * bm_b[:, :, None, :]
+            h_all = _ssm_scan(decay, inc, h)
+            return h_all[:, -1], f32_einsum("bsdn,bsn->bsd", h_all, cm_b)
+
+        ys = []
+        for c0 in range(0, s + pad, chunk):
+            sl = slice(c0, c0 + chunk)
+            h, y_b = checkpoint_if_recording(chunk_body, h, a, dt_c[:, sl],
+                                             x_c[:, sl], b_c[:, sl], c_c[:, sl])
+            ys.append(y_b)
+        y = torch.cat(ys, dim=1)[:, :s]
     y = y + xf * params["D"].float()
     y = y.to(mode.operand_dtype) * F.silu(z)
     return mode_dot(y, params["w_out"], mode), SSMState(h=h, conv=new_tail)

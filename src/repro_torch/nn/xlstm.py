@@ -18,8 +18,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from ..core.precision import ComputeMode, f32_scalar, full_f32, mode_dot
-from .layers import rms_norm
+from ..core.precision import ComputeMode, f32_einsum, f32_scalar, mode_dot
+from .layers import checkpoint_if_recording, rms_norm
 from .ssm import _causal_conv, _pad_time
 
 #: The stabilizer's start and the log input gate of a padded step.
@@ -52,8 +52,7 @@ def _mlstm_step(carry, xs):
     n = f_p * n + i_p * kt
     denom = torch.maximum(torch.abs(torch.sum(n * qt, dim=-1, keepdim=True)),
                           torch.exp(-m_new)[..., None])
-    with full_f32():
-        y = torch.einsum("bhvk,bhk->bhv", c, qt) / denom
+    y = f32_einsum("bhvk,bhk->bhv", c, qt) / denom
     return (c, n, m_new), y
 
 
@@ -67,16 +66,19 @@ def _mlstm_chunk(carry, qc, kc, vc, lic, lfc):
     m0r = m0[:, None]                                     # (B, 1, H)
     m_run = torch.maximum(torch.cummax(a, dim=1).values, m0r)   # M_t
     # Pairwise coefficient exp(a_tau - M_t) for tau <= t: (B, t, tau, H).
-    e = torch.exp(a[:, None, :, :] - m_run[:, :, None, :])
+    # The exponent is masked before exp (the reference masks after it): the
+    # values are the same, but exp(a_tau - M_t) for tau > t overflows to inf
+    # over a long chunk, and its gradient through the mask is then 0 * inf.
     L = qc.shape[1]
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=qc.device))
-    e = torch.where(tri[None, :, :, None], e, torch.zeros_like(e))
-    scores = torch.einsum("bthd,bshd->btsh", qc, kc)      # q_t . k_tau
-    sv = torch.einsum("btsh,bshd->bthd", scores * e, vc)
+    e = torch.exp((a[:, None, :, :] - m_run[:, :, None, :])
+                  .masked_fill(~tri[None, :, :, None], NEG_BIG))
+    scores = f32_einsum("bthd,bshd->btsh", qc, kc)        # q_t . k_tau
+    sv = f32_einsum("btsh,bshd->bthd", scores * e, vc)
     inter = torch.exp(m0r - m_run)                        # (B, t, H)
-    q_c0 = torch.einsum("bthk,bhvk->bthv", qc, c0)        # q_t C0
+    q_c0 = f32_einsum("bthk,bhvk->bthv", qc, c0)          # q_t C0
     y_num = sv + inter[..., None] * q_c0
-    n_t = inter[..., None] * n0[:, None] + torch.einsum("btsh,bshd->bthd", e, kc)
+    n_t = inter[..., None] * n0[:, None] + f32_einsum("btsh,bshd->bthd", e, kc)
     m_t = f_cum + m_run
     denom = torch.maximum(torch.abs(torch.sum(n_t * qc, dim=-1, keepdim=True)),
                           torch.exp(-m_t)[..., None])
@@ -85,8 +87,8 @@ def _mlstm_chunk(carry, qc, kc, vc, lic, lfc):
     end = torch.exp(m0 - m_run[:, -1])                    # (B, H)
     e_l = torch.exp(a - m_run[:, -1:, :])                 # (B, L, H)
     c_new = end[..., None, None] * c0 + \
-        torch.einsum("bshv,bshk->bhvk", e_l[..., None] * vc, kc)
-    n_new = end[..., None] * n0 + torch.einsum("bsh,bshk->bhk", e_l, kc)
+        f32_einsum("bshv,bshk->bhvk", e_l[..., None] * vc, kc)
+    n_new = end[..., None] * n0 + f32_einsum("bsh,bshk->bhk", e_l, kc)
     return (c_new, n_new, m_t[:, -1]), y
 
 
@@ -112,12 +114,13 @@ def _mlstm_cell(q, k, v, log_i, log_f, state, *, chunk: int = 256):
     log_i = _pad_time(log_i, pad, NEG_BIG)
     carry = (state.c, state.n, state.m)
     ys = []
-    with full_f32():
-        for c0 in range(0, s + pad, chunk):
-            sl = slice(c0, c0 + chunk)
-            carry, y = _mlstm_chunk(carry, q[:, sl], k[:, sl], v[:, sl],
-                                    log_i[:, sl], log_f[:, sl])
-            ys.append(y)
+    for c0 in range(0, s + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        # Checkpointed where autograd records (the reference's
+        # ``jax.checkpoint`` on ``chunk_body``).
+        carry, y = checkpoint_if_recording(_mlstm_chunk, carry, q[:, sl], k[:, sl],
+                                           v[:, sl], log_i[:, sl], log_f[:, sl])
+        ys.append(y)
     c, n, m = carry
     return torch.cat(ys, dim=1)[:, :s], c, n, m
 
@@ -177,19 +180,19 @@ def slstm_block(params: dict, x: torch.Tensor, cfg, *,
                                         device=x.device))
 
     gates = mode_dot(x, params["w_gates"], mode).float()  # (B, S, 4d)
+    gates = gates.reshape(b, s, 4, d)
     r = params["r_gates"].float()                          # (4, d)
     c, n, h_prev, m = state
     hs = []
     for t in range(s):
-        gz, gi, gf, go = torch.chunk(gates[:, t], 4, dim=-1)   # each (B, d)
-        gz = gz + r[0] * h_prev
-        gi = gi + r[1] * h_prev
-        gf = gf + r[2] * h_prev
-        go = go + r[3] * h_prev
+        # The four gates' recurrent terms in one product and one sum (the
+        # same elementwise arithmetic as four): each (B, d).
+        gz, gi, gf, go = torch.unbind(gates[:, t] + r * h_prev[:, None], dim=1)
         log_f = F.logsigmoid(gf)
-        m_new = torch.maximum(log_f + m, gi)
+        lfm = log_f + m
+        m_new = torch.maximum(lfm, gi)
         i_p = torch.exp(gi - m_new)
-        f_p = torch.exp(log_f + m - m_new)
+        f_p = torch.exp(lfm - m_new)
         c = f_p * c + i_p * torch.tanh(gz)
         n = f_p * n + i_p
         h_prev = torch.sigmoid(go) * c / torch.clamp(n, min=1e-6)

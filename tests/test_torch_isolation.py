@@ -39,7 +39,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                  "repro_torch.artifacts.codec", "repro_torch.artifacts.store",
                  "repro_torch.nn.attention", "repro_torch.nn.model",
                  "repro_torch.configs.qwen2_7b", "repro_torch.serving.engine",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.launch.train",
+                 "repro_torch.launch.specs", "repro_torch.optim.adamw",
+                 "repro_torch.checkpoint.ckpt", "repro_torch.data.pipeline"):
         assert name in modules, name
     code = (
         "import importlib, sys\n"
@@ -81,8 +83,8 @@ SUBPACKAGES = sorted(
 
 
 def test_subpackages_are_found():
-    assert {"artifacts", "configs", "core", "device", "nn", "obs"} \
-        <= set(SUBPACKAGES)
+    assert {"artifacts", "checkpoint", "configs", "core", "data", "device",
+            "launch", "nn", "obs", "optim"} <= set(SUBPACKAGES)
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)
