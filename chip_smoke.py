@@ -181,6 +181,28 @@ Phases; each raises on failure, so a failing phase never exits 0:
    (the reference launcher's example) as a child: exit 0, and a checkpoint
    ``load_checkpoint`` reads back whose weights give the first batch a
    lower loss than the launcher's initial weights.
+13. the mesh and dry-run tools (``nn/sharding.py``, ``launch/{mesh,specs,
+   dryrun}.py``), plain PyTorch on DTensor (the reference's dry run lowers
+   XLA operations only): (a) a one-rank NCCL group and a 1x1 mesh on the
+   card; for each of ``MESH_PAIRS`` (Qwen2-7B decode_32k, batch 128 and a
+   32,768-slot cache; Qwen2-7B's train step at 16 x 4096 tokens, one data
+   rank's share of train_4k, as no train_4k pair fits one card whole; and
+   whisper-small's prefill_32k, the pairs the dry run puts under 70 GB on
+   one device, each at one pattern period and full width)
+   ``build_lowering``'s step runs for real on DTensors over
+   arguments drawn on the card from a seed, against the plain step on the
+   same arguments: argument bytes equal to the dry run's exactly, the dry
+   run's predicted peak (arguments + temp) within 10 % of the card's peak
+   over the step (from a reset), its FLOPs equal to a ``FlopCounterMode``
+   count of the real step, and the result bit-equal to the plain step's
+   (on one card the mesh path changes no numerics); step ms between CUDA
+   events; (b) ``python3 -m repro_torch.launch.dryrun`` in child processes
+   on the fake group with a "cuda" mesh (``MESH_CHILDREN``: Qwen2-7B
+   decode_32k at full depth and train_4k at one layer on 16x16 and
+   2x16x16, and one pair of every other arch at one pattern period, each
+   family and step kind at least once), each of which must exit 0 with
+   ``status: "ok"``: per-device argument and temp GB, FLOPs, collectives
+   and seconds.  All the dry runs start first and run beside (a).
 
 With ``--baseline TREE`` (an older checkout of this repository that has
 the int8 datapath, e.g. unpacked from ``git archive`` under ``build/``),
@@ -1736,6 +1758,263 @@ def phase12(repo: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: Phase 13: the dry run's predicted peak (its arguments plus its temp
+#: bytes) within this share of the card's peak over the step.
+MESH_PEAK_RTOL = 0.10
+#: Phase 13(a): (arch, shape, pattern periods, dry run in a child process)
+#: run for real on a one-card mesh at full width.  The dry run on a 1x1 mesh
+#: chose them (PERF.md): whisper-small's prefill_32k is the least
+#: prefill_32k peak (35.9 GB); no train_4k pair fits one card at its whole
+#: batch of 256 x 4096 (the least, xlstm-350m's, is 85.5 GB), so the train
+#: step is Qwen2-7B's on train_4k's sequences at 16 of them, what one data
+#: rank of the 16x16 mesh holds (47.4 GB).
+MESH_TRAIN_SHAPE = dict(seq_len=4096, global_batch=16, kind="train")
+MESH_PAIRS = [("qwen2-7b", "decode_32k", 1, False), ("qwen2-7b", MESH_TRAIN_SHAPE, 1, False),
+              ("whisper-small", "prefill_32k", 1, True)]
+#: Phase 13(b): dry runs on the production meshes, in child processes:
+#: (arch, shape, layers override or 0 for full depth, multi-pod).  Every
+#: family and every step kind runs at least once.
+MESH_CHILDREN = [("qwen2-7b", "decode_32k", 0, False), ("qwen2-7b", "decode_32k", 0, True),
+                 ("qwen2-7b", "train_4k", 1, False), ("qwen2-7b", "train_4k", 1, True),
+                 ("granite-moe-1b-a400m", "train_4k", 1, False),
+                 ("qwen3-moe-235b-a22b", "prefill_32k", 1, False),
+                 ("hymba-1.5b", "long_500k", 1, False),
+                 ("xlstm-350m", "decode_32k", 1, False),
+                 ("whisper-small", "decode_32k", 1, False),
+                 ("llama-3.2-vision-90b", "decode_32k", 1, False),
+                 ("gemma2-9b", "long_500k", 1, False),
+                 ("qwen3-32b", "decode_32k", 1, False),
+                 ("command-r-plus-104b", "decode_32k", 1, False)]
+
+
+def mesh_args(cfg, spec, device: str, seed: int):
+    """Full-size arguments for ``spec`` (a ``build_lowering`` of ``cfg`` on
+    meta shards) drawn on ``device`` from ``seed``: the parameters as
+    ``init_params`` draws them, a decode cache and aux inputs normal x 0.5,
+    token ids uniform; the AdamW state at step 50 (a nonzero learning
+    rate)."""
+    import torch
+
+    from repro_torch.nn import model as M
+    from repro_torch.optim import adamw_init
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    normal = lambda a: (torch.randn(tuple(a.shape), generator=g, device=device) * 0.5) \
+        .to(a.dtype)
+    ids = lambda a: torch.randint(0, cfg.vocab_size, tuple(a.shape), generator=g,
+                                  device=device, dtype=a.dtype)
+    params_spec = spec.args[0]
+    dtype = next(iter(M.tree_leaves(params_spec))).dtype
+    params = M.init_params(cfg, seed, device, dtype)
+    if isinstance(spec.args[1], tuple) and hasattr(spec.args[1], "_fields") \
+            and "mu" in spec.args[1]._fields:                       # train
+        params = M.tree_map(lambda t: t.requires_grad_(True), params)
+        opt = adamw_init(params)
+        opt = opt._replace(step=torch.full((), 50, dtype=torch.int32, device=device))
+        batch = {k: (ids(v) if k != "aux" else normal(v)) for k, v in spec.args[2].items()}
+        return (params, opt, batch)
+    if len(spec.args) == 4 and not isinstance(spec.args[1], torch.Tensor):  # decode
+        return (params, M.tree_map(normal, spec.args[1]), ids(spec.args[2]), spec.args[3])
+    return (params, ids(spec.args[1])) + tuple(normal(a) for a in spec.args[2:])
+
+
+def mesh_pair(cfg, shape: str, mesh, device: str = "cuda", seed: int = SEED,
+              dry=None, peak_rtol=MESH_PEAK_RTOL) -> dict:
+    """Phase 13(a) for one pair on a one-device host ``mesh``: the step of
+    ``build_lowering`` run for real on DTensors over arguments drawn on
+    ``device``, against the plain step (no mesh, plain tensors) on the same
+    arguments, and against ``dry`` (the dry run's JSON for the pair on a
+    1x1 mesh; run in-process when None): argument bytes equal, the
+    predicted peak within ``peak_rtol`` of the card's (measured from a
+    reset, the arguments counted, nothing else held before the step; None:
+    not held), the
+    dry run's FLOPs equal a ``FlopCounterMode`` count of the real step, and
+    the step's result bit-equal to the plain step's (logits; for a train
+    step the loss and every parameter after AdamW)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.dryrun import run_pair
+    from repro_torch.nn import model as M
+    from repro_torch.nn.sharding import activate_mesh
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    spec = SP.build_lowering(cfg, shape, mesh)
+    kind = (SP.SHAPES[shape] if isinstance(shape, str) else shape)["kind"]
+    full = mesh_args(cfg, spec, device, seed)
+    real_bytes = SP.argument_bytes(full)
+    leaves = iter(list(M.tree_leaves(full)))
+
+    def wrap(a):
+        t = next(leaves)
+        return DTensor.from_local(t, mesh, a.placements, run_check=False) \
+            if isinstance(a, DTensor) else t
+    sharded = M.tree_map(wrap, spec.args)
+    if kind == "train":
+        plain = M.tree_map(lambda t: t.detach().clone().requires_grad_(t.requires_grad)
+                           if isinstance(t, torch.Tensor) else t, full)
+    else:
+        plain = full
+    out_plain = spec.fn(*plain)
+    ref = ([out_plain[2]] + list(M.tree_leaves(out_plain[0])) if kind == "train"
+           else [out_plain[0]])
+    del out_plain
+    sync()
+    if cuda:
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    with activate_mesh(mesh):
+        out = spec.fn(*sharded)
+    sync()
+    measured = (torch.cuda.max_memory_allocated() - base + real_bytes) if cuda else None
+    got = ([out[2]] + list(M.tree_leaves(out[0])) if kind == "train" else [out[0]])
+    local = lambda t: t.to_local() if isinstance(t, DTensor) else t
+    equal = all(torch.equal(local(a).detach(), b.detach()) for a, b in zip(got, ref))
+    del out, got, ref
+    # The count in a run of its own: FlopCounterMode decomposes the ops it
+    # has no formula for (logsumexp), which moves their rounding.
+    counter = FlopCounterMode(display=False)
+    with activate_mesh(mesh), counter:
+        spec.fn(*sharded)
+    # The step's time on the card (its result discarded).
+    if cuda:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    with activate_mesh(mesh):
+        spec.fn(*sharded)
+    if cuda:
+        end.record()
+        sync()
+        ms = start.elapsed_time(end)
+    else:
+        ms = (time.perf_counter() - t0) * 1e3
+    if dry is None:
+        dry = run_pair(cfg.name, shape, mesh=mesh, cfg=cfg)
+    predicted = dry["memory"]["argument_bytes"] + dry["memory"]["temp_bytes"]
+    res = {"arch": cfg.name, "shape": shape if isinstance(shape, str) else kind,
+           "layers": cfg.num_layers,
+           "argument_bytes": real_bytes, "dry_argument_bytes": dry["memory"]["argument_bytes"],
+           "predicted_peak_bytes": predicted, "measured_peak_bytes": measured,
+           "flops": float(counter.get_total_flops()), "dry_flops": dry["flops_per_device"],
+           "bit_equal": equal, "step_ms": ms, "dry_seconds": dry["lower_seconds"]}
+    print(f"  {cfg.name} {res['shape']} at {cfg.num_layers} layers on a 1x1 mesh: step "
+          f"{ms:.1f} ms; "
+          f"arguments {real_bytes / 1e9:.3f} GB (dry run {res['dry_argument_bytes'] / 1e9:.3f}); "
+          f"peak predicted {predicted / 1e9:.3f} GB, measured "
+          + (f"{measured / 1e9:.3f} GB" if measured is not None else "n/a")
+          + f"; FLOPs {res['flops']:.4g} (dry run {res['dry_flops']:.4g}); "
+          f"bit-equal to the plain step: {equal}")
+    check(real_bytes == res["dry_argument_bytes"],
+          f"{cfg.name} {shape}: argument bytes {real_bytes} != the dry run's "
+          f"{res['dry_argument_bytes']}")
+    if measured is not None and peak_rtol is not None:
+        check(abs(predicted - measured) <= peak_rtol * measured,
+              f"{cfg.name} {shape}: predicted peak {predicted} vs measured {measured}")
+    check(res["flops"] == res["dry_flops"],
+          f"{cfg.name} {shape}: FlopCounterMode {res['flops']} != dry run {res['dry_flops']}")
+    check(equal, f"{cfg.name} {shape}: the mesh step is not bit-equal to the plain step")
+    return res
+
+
+def _dryrun_cmd(arch, shape, layers, multipod, out, mesh=""):
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", shape, "--json", out, "--device", "cuda"]
+    if layers:
+        cmd += ["--layers-override", str(layers)]
+    if multipod:
+        cmd.append("--multipod")
+    if mesh:
+        cmd += ["--mesh", mesh]
+    return cmd
+
+
+def phase13(repo: str) -> dict:
+    """Phase 13: the mesh and dry-run tools (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import apply_layers_override
+    from repro_torch.launch.mesh import make_host_mesh
+    os.makedirs(os.path.join(repo, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="mesh-", dir=os.path.join(repo, "build"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"))
+    out: dict = {"card": card_line()}
+    procs = {}
+    try:
+        # The dry runs start first, each in a child process on the fake
+        # group: (b)'s on the production meshes, and (a)'s train and
+        # prefill pairs on a 1x1 mesh (the decode pair's runs in this
+        # process, on the card's own mesh).
+        t0 = time.perf_counter()
+        for arch, shape, layers, mp in MESH_CHILDREN:
+            tag = f"{arch}.{shape}.{'2x16x16' if mp else '16x16'}.g{layers}"
+            path = os.path.join(tmp, tag + ".json")
+            procs[tag] = (subprocess.Popen(_dryrun_cmd(arch, shape, layers, mp, path),
+                                           cwd=repo, env=env, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True), path)
+        for arch, shape, layers, _ in [p for p in MESH_PAIRS if p[3]]:
+            tag = f"{arch}.{shape}.1x1.g{layers}"
+            path = os.path.join(tmp, tag + ".json")
+            procs[tag] = (subprocess.Popen(_dryrun_cmd(arch, shape, layers, False, path,
+                                                       mesh="1x1"),
+                                           cwd=repo, env=env, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True), path)
+
+        def collect(tag):
+            proc, path = procs.pop(tag)
+            stdout, err = proc.communicate(timeout=900)
+            check(proc.returncode == 0, f"dry run {tag} exited {proc.returncode}: "
+                  f"{stdout[-3000:]} {err[-2000:]}")
+            with open(path) as f:
+                res = json.load(f)
+            check(res["status"] == "ok", f"dry run {tag}: {res}")
+            return res
+
+        # (a) One-card mesh: a real process group of one rank.
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh(data=1, model=1, device_type="cuda")
+            pairs = []
+            for arch, shape, layers, child in MESH_PAIRS:
+                cfg = apply_layers_override(get_config(arch), layers)
+                dry = collect(f"{arch}.{shape}.1x1.g{layers}") if child else None
+                pairs.append(mesh_pair(cfg, shape, mesh, dry=dry))
+                torch.cuda.empty_cache()
+            out["one_card"] = pairs
+        finally:
+            dist.destroy_process_group()
+
+        # (b) The production meshes.
+        children = []
+        for tag in list(procs):
+            res = collect(tag)
+            mem = res["memory"]
+            coll = ", ".join(f"{k} {v['count']} x {v['bytes'] / 1e9:.3f} GB"
+                             for k, v in sorted(res["collectives"].items()))
+            print(f"  dry run {tag}: per device arguments {mem['argument_bytes'] / 1e9:.3f} GB, "
+                  f"temp {mem['temp_bytes'] / 1e9:.3f} GB, {res['flops_per_device']:.4g} FLOPs; "
+                  f"{coll}; {res['lower_seconds']} s")
+            children.append(dict(res, tag=tag))
+        out["production"] = children
+        out["seconds"] = time.perf_counter() - t0
+        return out
+    finally:
+        for proc, _ in procs.values():
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2674,6 +2953,10 @@ def main(argv=None) -> int:
     # ---- 12. LM training: Qwen2-7B at full width, the other families ------
     results["phase12"] = phase12(repo)
     phase_done("lm_training")
+
+    # ---- 13. the mesh and dry-run tools -----------------------------------
+    results["phase13"] = phase13(repo)
+    phase_done("mesh_dryrun")
 
     # One entry per kernel: its wrapper's launches on its main path (warm-ups
     # and captures) and its globals' launches on the card in that path's

@@ -89,6 +89,27 @@ def _recording(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _grad_like_output(ctx, out):
+    """Note a DTensor result's placements (a pending sum read as
+    replicated), for :func:`_as_output_grad`."""
+    placements = getattr(out, "placements", None)
+    if placements is not None:
+        from torch.distributed.tensor import Partial, Replicate
+        placements = tuple(Replicate() if isinstance(p, Partial) else p
+                           for p in placements)
+    ctx.out_placements = placements
+    return out
+
+
+def _as_output_grad(ctx, g):
+    """A DTensor gradient laid out as its forward result was: DTensor's
+    backward may hand it over sharded on another dimension (the sequence),
+    which the products' sharding rules cannot always take."""
+    if ctx.out_placements is not None and tuple(g.placements) != ctx.out_placements:
+        g = g.redistribute(g.device_mesh, ctx.out_placements)
+    return g
+
+
 class _F32Matmul(torch.autograd.Function):
     """``torch.matmul`` with TF32 off in the forward and in the backward."""
 
@@ -96,12 +117,13 @@ class _F32Matmul(torch.autograd.Function):
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
         with full_f32():
-            return torch.matmul(a, b)
+            return _grad_like_output(ctx, torch.matmul(a, b))
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         a, b = ctx.saved_tensors
+        g = _as_output_grad(ctx, g)
         ga = gb = None
         with full_f32():
             if ctx.needs_input_grad[0]:
@@ -124,12 +146,13 @@ class _F32Einsum(torch.autograd.Function):
         ctx.eq = eq
         ctx.save_for_backward(x, y)
         with full_f32():
-            return torch.einsum(eq, x, y)
+            return _grad_like_output(ctx, torch.einsum(eq, x, y))
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, y = ctx.saved_tensors
+        g = _as_output_grad(ctx, g)
         ins, out = ctx.eq.split("->")
         sx, sy = ins.split(",")
         gx = gy = None

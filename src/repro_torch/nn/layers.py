@@ -12,7 +12,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from torch.distributed.tensor import DTensor, Partial
+
 from ..core.precision import ComputeMode, mode_dot
+from .sharding import (BATCH, axis_size, carry_mesh, constrain, coordinate,
+                       local_map, mesh_axes, placements, replicated, resolve)
 
 
 def checkpoint_if_recording(fn, *args):
@@ -22,7 +26,7 @@ def checkpoint_if_recording(fn, *args):
     (serving, ``inference_mode``) the plain call."""
     if torch.is_grad_enabled() and any(
             isinstance(a, torch.Tensor) and a.requires_grad for a in args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(carry_mesh(fn), *args, use_reentrant=False)
     return fn(*args)
 
 
@@ -39,15 +43,21 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding, half-split, with f32 angles.  x: (..., S, H, hd);
-    positions: (S,) or (B, S)."""
+    positions: (S,) or (B, S), or a ``range``."""
     hd = x.shape[-1]
     half = hd // 2
     # theta stays a Python number: a tensor made from it on the card would
     # be a host-to-device copy, which waits for the stream.
     freqs = torch.pow(theta, -torch.arange(0, half, dtype=torch.float32,
                                            device=x.device) / half)
+    if isinstance(positions, range):
+        positions = torch.arange(positions.start, positions.stop, positions.step,
+                                 device=x.device)
+    if isinstance(positions, DTensor):
+        positions = positions.to_local()
     ang = positions.to(device=x.device, dtype=torch.float32)[..., None] * freqs
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    cos, sin = replicated(cos, x), replicated(sin, x)
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -74,11 +84,34 @@ def mlp(params: dict, x: torch.Tensor, *, activation: str = "silu",
         h = act(mode_dot(x, params["wg"], mode)) * mode_dot(x, params["wu"], mode)
     else:
         h = act(mode_dot(x, params["wu"], mode))
+    h = constrain(h, BATCH, None, "model")      # hidden sharded over d_ff
     return mode_dot(h, params["wd"], mode)
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """``table[tokens]``.  On DTensors a vocabulary-parallel lookup: each
+    rank looks up the tokens of its slice of the vocabulary ('model'),
+    zeros elsewhere, and the sum over 'model' is left pending."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    tok_spec = resolve(tokens.shape, (BATCH,), mesh)
+    vocab = resolve(table.shape, ("model",), mesh)[0]
+    out_spec = tok_spec + (None,)
+    if vocab is None or axis_size(mesh, "model") == 1:
+        return local_map(lambda t, i: t[i], [table, tokens],
+                         [(None, None), tok_spec], out_spec)
+    n = table.shape[0] // axis_size(mesh, "model")
+
+    def lookup(t, i):
+        lo = coordinate(mesh, ("model",)) * n
+        mine = (i >= lo) & (i < lo + n)
+        rows = t[torch.where(mine, i - lo, torch.zeros_like(i))]
+        return torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    pl = list(placements(out_spec, mesh))
+    pl[mesh_axes(mesh).index("model")] = Partial()
+    return local_map(lookup, [table, tokens], [("model", None), tok_spec],
+                     tuple(pl))
 
 
 def unembed(x: torch.Tensor, table_or_head: torch.Tensor, *, tied: bool,

@@ -18,9 +18,16 @@ kind ``cfg.block_pattern[i % P]``; a hybrid layer nests its mixer under
 ``"mamba"``, a cross layer its second attention under ``"cross"``; the
 encoder's layers are ``params["enc_layers"]``) and runs them in a Python
 loop.  :func:`params_from_reference` unstacks the reference's tree into that
-form, which is how the tests run both packages on the same weights.  The
-reference's sharding constraints are the identity on one card and are not
-ported.
+form, which is how the tests run both packages on the same weights.
+
+Meshes: every parameter definition carries the reference's logical axes
+(:func:`param_axes`), which ``nn/sharding.py`` maps to mesh axes; the
+model runs on DTensors as it runs on tensors, and emits the reference's
+sharding constraints (the residual stream over the batch axes, the MLP's
+hidden over 'model', the attention heads) only under an active mesh, so
+with none the one-card paths are unchanged.  :func:`abstract_params` and
+``init_cache(abstract=True)`` give shapes on the ``meta`` device for the
+dry run; ``init_cache(mesh=)`` a sharded cache.
 
 Training: :func:`forward` (logits) and :func:`loss_fn` (chunked
 cross-entropy) run the same blocks with autograd recording; each layer is
@@ -43,6 +50,7 @@ from ..core.precision import ComputeMode
 from .attention import KVCache, cross_attention, self_attention
 from .config import ModelConfig
 from .layers import checkpoint_if_recording, embed, mlp, rms_norm, unembed
+from . import sharding as S
 from .moe import moe_ffn
 from .ssm import SSMState, mamba_mixer
 from .xlstm import MLSTMState, SLSTMState, mlstm_block, slstm_block
@@ -81,80 +89,102 @@ def tree_leaves(tree) -> Iterator:
 
 
 # ---------------------------------------------------------------------------
-# Parameters: name -> (shape, fan_in), nested; fan_in 0 = zero-initialized
+# Parameters: name -> (shape, logical axes, fan_in), nested; fan_in 0 =
+# zero-initialized.  The logical axes are the reference's (without its
+# leading "layers" stacking axis); nn/sharding.py maps them to mesh axes.
 # ---------------------------------------------------------------------------
 
-Def = Tuple[Tuple[int, ...], int]
+Def = Tuple[Tuple[int, ...], Tuple[Optional[str], ...], int]
 
 
 def _attn_defs(cfg: ModelConfig) -> Dict[str, Def]:
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
-    p = {"wq": ((d, h * hd), d), "wk": ((d, kv * hd), d),
-         "wv": ((d, kv * hd), d), "wo": ((h * hd, d), h * hd)}
+    p = {"wq": ((d, h * hd), ("embed", "heads"), d),
+         "wk": ((d, kv * hd), ("embed", "kv"), d),
+         "wv": ((d, kv * hd), ("embed", "kv"), d),
+         "wo": ((h * hd, d), ("heads", "embed"), h * hd)}
     if cfg.qkv_bias:
-        p.update(bq=((h * hd,), 0), bk=((kv * hd,), 0), bv=((kv * hd,), 0))
+        p.update(bq=((h * hd,), ("heads",), 0), bk=((kv * hd,), ("kv",), 0),
+                 bv=((kv * hd,), ("kv",), 0))
     if cfg.qk_norm:
-        p.update(qnorm=((hd,), 0), knorm=((hd,), 0))
+        p.update(qnorm=((hd,), (None,), 0), knorm=((hd,), (None,), 0))
     return p
 
 
 def _mlp_defs(cfg: ModelConfig) -> Dict[str, Def]:
     d, f = cfg.d_model, cfg.d_ff
-    return {"wg": ((d, f), d), "wu": ((d, f), d), "wd": ((f, d), f)}
+    return {"wg": ((d, f), ("embed", "mlp"), d),
+            "wu": ((d, f), ("embed", "mlp"), d),
+            "wd": ((f, d), ("mlp", "embed"), f)}
 
 
 def _moe_defs(cfg: ModelConfig) -> Dict[str, Def]:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
-    return {"router": ((d, e), d), "wg": ((e, d, f), d),
-            "wu": ((e, d, f), d), "wd": ((e, f, d), f)}
+    return {"router": ((d, e), ("embed", None), d),
+            "wg": ((e, d, f), ("experts", "embed", None), d),
+            "wu": ((e, d, f), ("experts", "embed", None), d),
+            "wd": ((e, f, d), ("experts", None, "embed"), f)}
 
 
 def _mamba_defs(cfg: ModelConfig) -> Dict[str, Def]:
     d = cfg.d_model
     di = cfg.ssm.expand * d
     n, cw = cfg.ssm.state_dim, cfg.ssm.conv_width
-    return {"w_in": ((d, 2 * di), d), "conv_w": ((cw, di), 0),
-            "w_dt": ((di, di), di), "dt_bias": ((di,), 0),
-            "A_log": ((di, n), 0), "w_B": ((di, n), di), "w_C": ((di, n), di),
-            "D": ((di,), 0), "w_out": ((di, d), di)}
+    return {"w_in": ((d, 2 * di), ("embed", "inner"), d),
+            "conv_w": ((cw, di), (None, "inner"), 0),
+            "w_dt": ((di, di), ("inner", None), di),
+            "dt_bias": ((di,), ("inner",), 0),
+            "A_log": ((di, n), ("inner", "state"), 0),
+            "w_B": ((di, n), ("inner", "state"), di),
+            "w_C": ((di, n), ("inner", "state"), di),
+            "D": ((di,), ("inner",), 0),
+            "w_out": ((di, d), ("inner", "embed"), di)}
 
 
 def _mlstm_defs(cfg: ModelConfig) -> Dict[str, Def]:
     d, h = cfg.d_model, cfg.num_heads
     di = 2 * d
-    return {"w_in": ((d, 2 * di), d), "conv_w": ((4, di), 0),
-            "wq": ((di, di), di), "wk": ((di, di), di), "wv": ((di, di), di),
-            "w_i": ((di, h), di), "w_f": ((di, h), di),
-            "cell_norm": ((di // h,), 0), "w_out": ((di, d), di)}
+    return {"w_in": ((d, 2 * di), ("embed", "inner"), d),
+            "conv_w": ((4, di), (None, "inner"), 0),
+            "wq": ((di, di), (None, "inner"), di),
+            "wk": ((di, di), (None, "inner"), di),
+            "wv": ((di, di), (None, "inner"), di),
+            "w_i": ((di, h), (None, None), di),
+            "w_f": ((di, h), (None, None), di),
+            "cell_norm": ((di // h,), (None,), 0),
+            "w_out": ((di, d), ("inner", "embed"), di)}
 
 
 def _slstm_defs(cfg: ModelConfig) -> Dict[str, Def]:
     d = cfg.d_model
     f43 = max((4 * d // 3 + 127) // 128 * 128, 128)
-    return {"w_gates": ((d, 4 * d), d), "r_gates": ((4, d), 0),
-            "cell_norm": ((d,), 0), "w_ff_g": ((d, f43), d),
-            "w_ff_u": ((d, f43), d), "w_ff_d": ((f43, d), f43)}
+    return {"w_gates": ((d, 4 * d), ("embed", "inner"), d),
+            "r_gates": ((4, d), (None, "inner"), 0),
+            "cell_norm": ((d,), (None,), 0),
+            "w_ff_g": ((d, f43), ("embed", "mlp"), d),
+            "w_ff_u": ((d, f43), ("embed", "mlp"), d),
+            "w_ff_d": ((f43, d), ("mlp", "embed"), f43)}
 
 
 def _layer_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     """One layer's parameter definitions, in the reference's key order;
     ``ValueError`` for an unknown kind."""
-    d = cfg.d_model
-    p: Dict[str, Any] = {"ln1": ((d,), 0)}
+    norm = ((cfg.d_model,), (None,), 0)
+    p: Dict[str, Any] = {"ln1": norm}
     if kind in ATTN_KINDS:
         p.update(_attn_defs(cfg))
         if kind == "cross":
-            p["lnx"] = ((d,), 0)
+            p["lnx"] = norm
             p["cross"] = _attn_defs(cfg)
         if kind == "hybrid":
             p["mamba"] = _mamba_defs(cfg)
         if cfg.sandwich_norm:
-            p["ln1_post"] = ((d,), 0)
+            p["ln1_post"] = norm
         if not cfg.parallel_block:
-            p["ln2"] = ((d,), 0)
+            p["ln2"] = norm
             if cfg.sandwich_norm:
-                p["ln2_post"] = ((d,), 0)
+                p["ln2_post"] = norm
         if cfg.moe is not None:
             p.update(_moe_defs(cfg))
         elif cfg.d_ff > 0:
@@ -170,11 +200,12 @@ def _layer_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
 
 def _top_defs(cfg: ModelConfig) -> Dict[str, Def]:
     d, v = cfg.d_model, cfg.vocab_size
-    p = {"embed": ((v, d), d), "final_norm": ((d,), 0)}
+    p = {"embed": ((v, d), ("vocab", "embed"), d),
+         "final_norm": ((d,), (None,), 0)}
     if not cfg.tie_embeddings:
-        p["lm_head"] = ((d, v), d)
+        p["lm_head"] = ((d, v), ("embed", "vocab"), d)
     if cfg.is_encoder_decoder:
-        p["enc_final_norm"] = ((d,), 0)
+        p["enc_final_norm"] = ((d,), (None,), 0)
     return p
 
 
@@ -183,7 +214,7 @@ def layer_kind(cfg: ModelConfig, i: int) -> str:
 
 
 def _is_def(x) -> bool:
-    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], tuple)
+    return isinstance(x, tuple) and len(x) == 3 and isinstance(x[0], tuple)
 
 
 def _map_defs(fn: Callable[[Def], Any], defs):
@@ -212,7 +243,7 @@ def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int],
         generator = torch.Generator(device=device).manual_seed(int(generator))
 
     def draw(d: Def) -> torch.Tensor:
-        shape, fan_in = d
+        shape, _, fan_in = d
         if fan_in == 0:
             return torch.zeros(shape, dtype=dtype, device=device)
         return torch.randn(shape, generator=generator, dtype=dtype,
@@ -230,13 +261,36 @@ def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int],
             layer["conv_w"][-1] = 1.0
         return layer
 
-    params: Params = _map_defs(draw, _top_defs(cfg))
-    params["layers"] = [fix(_map_defs(draw, _layer_defs(cfg, layer_kind(cfg, i))))
-                        for i in range(cfg.num_layers)]
-    if cfg.is_encoder_decoder:
-        params["enc_layers"] = [_map_defs(draw, _layer_defs(cfg, "attn"))
-                                for _ in range(cfg.encoder_layers)]
+    params = _param_tree(cfg, draw)
+    params["layers"] = [fix(layer) for layer in params["layers"]]
     return params
+
+
+def _param_tree(cfg: ModelConfig, fn: Callable[[Def], Any]) -> Dict[str, Any]:
+    """``fn`` of every definition, in the parameter tree's layout and order:
+    the top-level leaves, then ``layers``, then ``enc_layers``."""
+    tree: Dict[str, Any] = _map_defs(fn, _top_defs(cfg))
+    tree["layers"] = [_map_defs(fn, _layer_defs(cfg, layer_kind(cfg, i)))
+                      for i in range(cfg.num_layers)]
+    if cfg.is_encoder_decoder:
+        tree["enc_layers"] = [_map_defs(fn, _layer_defs(cfg, "attn"))
+                              for _ in range(cfg.encoder_layers)]
+    return tree
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter tree with each leaf's logical-axes tuple (the
+    reference's ``param_axes`` without its ``"layers"`` stacking axis, which
+    its rules never shard)."""
+    return _param_tree(cfg, lambda d: d[1])
+
+
+def abstract_params(cfg: ModelConfig,
+                    dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
+    """The parameter tree as ``meta`` tensors: shapes and dtypes, nothing
+    allocated."""
+    return _param_tree(cfg, lambda d: torch.empty(d[0], dtype=dtype,
+                                                  device="meta"))
 
 
 def num_params(cfg: ModelConfig) -> int:
@@ -315,13 +369,15 @@ def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig,
 
 
 def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                positions: torch.Tensor, mode: ComputeMode,
+                positions: "torch.Tensor | range", mode: ComputeMode,
                 window_override: int = 0, aux_kv: Optional[torch.Tensor] = None,
                 cache=None, cache_pos: Optional[int] = None):
     """One block; returns (x, the layer's cache).  Without ``cache`` (a
     prefill) the cache is new, of the prompt's length; with it (a decode
     step at ``cache_pos``) K/V are written into it in place.  The cache of
     each kind is described in :func:`init_cache`."""
+    # The residual stream stays sharded over the batch axes.
+    x = S.constrain(x, S.BATCH, None, None)
     if kind in ATTN_KINDS:
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         attn_cache = cache[0] if (cache is not None
@@ -399,7 +455,7 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
     non-causal self-attention with rope over ``arange(Se)``, then the MLP,
     per layer; the final norm."""
     x = frames.to(mode.operand_dtype)
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = range(x.shape[1])
     for p in params["enc_layers"]:
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         out, _ = self_attention(p, h, cfg, positions=positions, causal=False,
@@ -443,6 +499,7 @@ def _save_dots(ctx, op, *args, **kwargs):
 def _checkpoint_layer(cfg: ModelConfig, fn: Callable, x: torch.Tensor):
     """``fn(x)`` under the config's layer checkpoint: everything recomputed
     in the backward (``"full"``), or all but the 2-D products (``"dots"``)."""
+    fn = S.carry_mesh(fn)
     if cfg.remat_policy == "dots":
         return checkpoint(fn, x, use_reentrant=False, context_fn=functools.partial(
             create_selective_checkpoint_contexts, _save_dots))
@@ -456,7 +513,7 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     norm: (B, S) tokens -> (B, S, d) in the mode's operand dtype."""
     aux_kv = _aux_kv(params, aux, cfg, mode, caller)
     x = _embed_tokens(params, tokens, cfg, mode)
-    positions = torch.arange(tokens.shape[1], device=x.device)
+    positions = range(tokens.shape[1])
     for i, p in enumerate(params["layers"]):
         def layer(x, p=p, kind=layer_kind(cfg, i)):
             return apply_block(kind, p, x, cfg, positions=positions, mode=mode,
@@ -497,22 +554,69 @@ def loss_fn(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
     chunk = min(chunk, s)
     pad = (-s) % chunk
     if pad:
-        x = torch.cat([x, x.new_zeros((b, pad, x.shape[2]))], dim=1)
-        labels = torch.cat([labels, labels.new_full((b, pad), -1)], dim=1)
+        x = torch.cat([x, S.zeros_placed_like(x, (b, pad, x.shape[2]))], dim=1)
+        labels = torch.cat([labels, S.zeros_placed_like(labels, (b, pad)) - 1
+                            if isinstance(labels, S.DTensor)
+                            else labels.new_full((b, pad), -1)], dim=1)
 
     def chunk_loss(xc, lc):
-        logits = _unembed(params, xc, cfg, mode)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, torch.clamp(lc, min=0).long()[..., None])[..., 0]
-        valid = (lc >= 0).float()
-        return torch.sum((logz - gold) * valid), torch.sum(valid)
+        return _nll_sums(_unembed(params, xc, cfg, mode), lc)
 
-    tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    if isinstance(x, S.DTensor):
+        chunk_loss = functools.partial(_sharded_chunk_loss, params, cfg=cfg,
+                                       mode=mode)
+    tot = cnt = S.replicated(torch.zeros((), dtype=torch.float32, device=x.device), x)
     for c0 in range(0, s + pad, chunk):
         nll, n = checkpoint_if_recording(chunk_loss, x[:, c0:c0 + chunk],
                                          labels[:, c0:c0 + chunk])
         tot, cnt = tot + nll, cnt + n
     return tot / torch.clamp(cnt, min=1.0)
+
+
+def _nll_sums(logits: torch.Tensor, labels: torch.Tensor):
+    """(sum of -log p(label), count) over the labels >= 0 of a chunk."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    valid = (labels >= 0).float()
+    return torch.sum((logz - gold) * valid), torch.sum(valid)
+
+
+def _sharded_chunk_loss(params: Params, xc, lc, *, cfg: ModelConfig,
+                        mode: ComputeMode):
+    """:func:`loss_fn`'s chunk on DTensors, vocabulary-parallel: each rank
+    takes the logits of its slice of the vocabulary ('model') for its rows
+    (the batch axes); the max, the sum of exponentials and the gold logit
+    are reduced over 'model', and the (nll, count) sums are left pending
+    over the batch axes."""
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    mesh = xc.device_mesh
+    row = S.resolve(xc.shape, (S.BATCH,), mesh)
+    vdim = 0 if cfg.tie_embeddings else 1
+    head_axes = [None, None]
+    head_axes[vdim] = "model"
+    head_spec = S.resolve(head.shape, head_axes, mesh)
+    vaxes = ("model",) if head_spec[vdim] else ()
+    nv = head.shape[vdim] // S.group_size(mesh, vaxes)
+
+    def local(xl, ll, hl):
+        logits = unembed(xl, hl, tied=cfg.tie_embeddings,
+                         final_cap=cfg.final_logit_softcap, mode=mode)
+        if S.group_size(mesh, vaxes) == 1:
+            return _nll_sums(logits, ll)
+        m = S.pmax(logits.amax(dim=-1), mesh, vaxes)
+        se = S.psum(torch.exp(logits - m[..., None]).sum(dim=-1), mesh, vaxes)
+        lo = S.coordinate(mesh, vaxes) * nv
+        idx = torch.clamp(ll, min=0).long() - lo
+        mine = (idx >= 0) & (idx < nv)
+        g = logits.gather(-1, torch.where(mine, idx, torch.zeros_like(idx))[..., None])[..., 0]
+        gold = S.psum(torch.where(mine, g, torch.zeros_like(g)), mesh, vaxes)
+        valid = (ll >= 0).float()
+        return torch.sum((m + torch.log(se) - gold) * valid), torch.sum(valid)
+
+    rows = S.entry_axes(row[0])
+    pl = [S.Partial() if a in rows else S.Replicate() for a in S.mesh_axes(mesh)]
+    return S.local_map(local, [xc, lc, head], [row, row, head_spec], [pl, pl],
+                       split_axes=vaxes)
 
 
 # ---------------------------------------------------------------------------
@@ -527,8 +631,12 @@ def cache_capacity(cfg: ModelConfig, kind: str, seq_len: int,
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                window_override: int = 0, dtype: torch.dtype = torch.bfloat16,
-               device: "str | torch.device" = "cuda") -> List[Any]:
-    """A zero decode cache for a context of ``seq_len``, one entry a layer:
+               device: "str | torch.device" = "cuda",
+               abstract: bool = False, mesh=None) -> List[Any]:
+    """A zero decode cache for a context of ``seq_len``, one entry a layer
+    (``abstract``: ``meta`` tensors of its shapes, nothing allocated;
+    ``mesh``: DTensors on it in the reference's layout,
+    :func:`sharding.cache_spec`, each rank's zeros its own shard):
 
     * ``attn`` kinds: a :class:`KVCache` (a ring of the window's size for a
       windowed layer);
@@ -541,7 +649,13 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
     """
     width = cfg.num_kv_heads * cfg.resolved_head_dim
     f32 = torch.float32
-    zeros = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
+    if abstract:
+        zeros = lambda shape, dt=dtype: torch.empty(shape, dtype=dt, device="meta")
+    elif mesh is not None:
+        zeros = lambda shape, dt=dtype: S.zeros_sharded(
+            shape, dt, mesh, S.cache_spec(shape, mesh), device)
+    else:
+        zeros = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
 
     def kv(kind):
         cap = cache_capacity(cfg, kind, seq_len, window_override)
@@ -591,15 +705,15 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
                          f"capacity {capacity}")
     aux_kv = _aux_kv(params, aux, cfg, mode, "prefill")
     x = _embed_tokens(params, tokens, cfg, mode)
-    positions = torch.arange(s, device=x.device)
+    positions = range(s)
 
     def expand_kv(kvc: KVCache, kind: str) -> KVCache:
         cap = cache_capacity(cfg, kind, capacity, window_override)
         if cap >= s:
             pad = lambda a: torch.cat(
-                [a, a.new_zeros((b, cap - s, a.shape[2]))], dim=1)
+                [a, S.zeros_placed_like(a, (b, cap - s, a.shape[2]))], dim=1)
             return KVCache(pad(kvc.k), pad(kvc.v))
-        ring = lambda a: torch.roll(a[:, -cap:], s % cap, dims=1)
+        ring = lambda a: _seq_local(lambda t: torch.roll(t[:, -cap:], s % cap, dims=1), a)
         return KVCache(ring(kvc.k), ring(kvc.v))
 
     caches = []
@@ -613,6 +727,17 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             nc = (expand_kv(nc[0], kind), nc[1])
         caches.append(nc)
     return _logits(params, x[:, -1:], cfg, mode)[:, 0], caches
+
+
+def _seq_local(fn: Callable, a):
+    """``fn(a)`` for an ``fn`` that works along dim 1 (the sequence): on a
+    DTensor, on each rank's shard, the sequence gathered first if a mesh
+    axis shards it (DTensor has no rule for ``roll``)."""
+    if not isinstance(a, S.DTensor):
+        return fn(a)
+    pl = tuple(S.Replicate() if isinstance(p, S.Shard) and p.dim == 1 else p
+               for p in a.placements)
+    return S.local_map(fn, [a], [pl], pl)
 
 
 def decode_step(params: Params, caches: List[Any], token: torch.Tensor,

@@ -21,6 +21,7 @@ from typing import Tuple
 import torch
 
 from ..core.precision import ComputeMode, f32_matmul, mode_dot
+from . import sharding as S
 from .layers import _activation
 
 
@@ -71,37 +72,88 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg, *,
     """x: (B, S, d) -> (B, S, d).  params: router (d, E), wg/wu (E, d, f),
     wd (E, f, d).  The reference's ``return_aux`` (the load-balance term)
     is not ported: nothing in the reference calls it, and its ``loss_fn``
-    is cross-entropy only."""
+    is cross-entropy only.
+
+    On DTensors the tokens split over the batch axes and the experts over
+    'model' (where ``expert_parallel`` and the count divides), with the
+    reference's global semantics: see :func:`_moe_local`.  Each token's
+    output is then a sum over the expert shards left pending."""
+    names = ("router", "wg", "wu", "wd")
+    if not isinstance(x, S.DTensor):
+        return _moe_local(x, *(params[n] for n in names), cfg=cfg, mode=mode)
+    moe = cfg.moe
+    mesh = x.device_mesh
+    x_spec = S.resolve(x.shape, (S.BATCH, None, None), mesh)
+    e_spec = S.resolve((moe.num_experts,),
+                       ("model" if moe.expert_parallel else None,), mesh)
+    rows, ex = S.entry_axes(x_spec[0]), S.entry_axes(e_spec[0])
+    out_pl = list(S.placements(x_spec, mesh))
+    for a in ex:
+        out_pl[S.mesh_axes(mesh).index(a)] = S.Partial()
+    w_spec = e_spec + (None, None)
+    return S.local_map(
+        lambda *a: _moe_local(*a, cfg=cfg, mode=mode, mesh=mesh, rows=rows, ex=ex),
+        [x] + [params[n] for n in names], [x_spec, (None, None), w_spec, w_spec, w_spec],
+        tuple(out_pl))
+
+
+def _moe_local(x, router, wg, wu, wd, *, cfg, mode: ComputeMode, mesh=None,
+               rows=(), ex=()):
+    """The layer on one rank's tokens ``x`` and experts ``wg/wu/wd``: the
+    tokens split over the mesh axes ``rows``, the experts over ``ex``; with
+    neither it is the whole layer and runs no collective.
+
+    Each rank routes its own tokens.  A pair's slot in its expert's buffer
+    counts the pairs of the ranks before it (an all-gather of per-expert
+    counts over ``rows``), so the capacity and the drops are those of the
+    whole batch.  Each rank fills its experts' (E_l, C, d) buffers with its
+    own pairs, the buffers are summed over ``rows``, and the expert
+    products run on the local experts."""
     moe = cfg.moe
     b, s, d = x.shape
     t = b * s
     e, k = moe.num_experts, moe.top_k
+    n_rows, n_ex = S.group_size(mesh, rows), S.group_size(mesh, ex)
     xf = x.reshape(t, d)
-    top_p, top_i, _ = route(params["router"], xf, e, k, mode)
+    top_p, top_i, _ = route(router, xf, e, k, mode)
 
-    capacity = expert_capacity(t, s, moe)
+    capacity = expert_capacity(t * n_rows, s, moe)
     e_flat = top_i.reshape(-1)                                  # (T*k,)
     slot, keep = assign_slots(top_i, e, capacity)
+    if n_rows > 1:
+        # Pairs of the same expert on the ranks before this one.
+        counts = torch.nn.functional.one_hot(e_flat, e).sum(0)
+        every = S.all_gather(counts[None], 0, mesh, rows)
+        slot = slot + every[:S.coordinate(mesh, rows)].sum(0)[e_flat]
+        keep = slot < capacity
     slot_c = torch.clamp(slot, 0, capacity - 1)
+    e_l, e_loc = e, e_flat
+    if n_ex > 1:
+        e_l = e // n_ex
+        lo = S.coordinate(mesh, ex) * e_l
+        mine = (e_flat >= lo) & (e_flat < lo + e_l)
+        e_loc = torch.where(mine, e_flat - lo, torch.zeros_like(e_flat))
+        keep = keep & mine
 
     # Scatter into per-expert buffers; a dropped pair adds zeros at slot C-1.
     x_rep = xf[:, None, :].expand(t, k, d).reshape(t * k, d)    # jnp.repeat
     contrib = torch.where(keep[:, None], x_rep,
                           torch.zeros_like(x_rep)).to(mode.operand_dtype)
-    buf = torch.zeros((e, capacity, d), dtype=mode.operand_dtype,
+    buf = torch.zeros((e_l, capacity, d), dtype=mode.operand_dtype,
                       device=x.device)
-    buf.index_put_((e_flat, slot_c), contrib, accumulate=True)
+    buf.index_put_((e_loc, slot_c), contrib, accumulate=True)
+    buf = S.psum(buf, mesh, rows, grad_sum=True)
 
     # Grouped GEMM across experts (a gated MLP per expert).
     act = _activation(cfg.ffn_activation)
-    wg, wu, wd = (params[n].to(mode.operand_dtype) for n in ("wg", "wu", "wd"))
+    wg, wu, wd = (w.to(mode.operand_dtype) for w in (wg, wu, wd))
     hg = f32_matmul(buf, wg).to(mode.accum_dtype)               # (E, C, f)
     hu = f32_matmul(buf, wu).to(mode.accum_dtype)
     hout = (act(hg) * hu).to(mode.operand_dtype)
     yb = f32_matmul(hout, wd)                                   # (E, C, d)
 
     # Gather back, weighted by the router's probabilities.
-    y_tok = yb[e_flat, slot_c]                                  # (T*k, d)
+    y_tok = yb[e_loc, slot_c]                                   # (T*k, d)
     w_tok = (top_p.reshape(-1) * keep.float())[:, None]
     y = (y_tok.float() * w_tok).reshape(t, k, d).sum(dim=1)
     return y.reshape(b, s, d).to(mode.out_dtype)

@@ -19,8 +19,11 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
 from ..core.precision import ComputeMode, f32_einsum, mode_dot
 from .layers import checkpoint_if_recording
+from .sharding import BATCH, constrain, local_map, resolve, zeros_placed_like
 
 
 class SSMState(NamedTuple):
@@ -82,7 +85,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     x: (B, S, di); w: (cw, di); tail: (B, cw-1, di)."""
     cw = w.shape[0]
     if tail is None:
-        tail = x.new_zeros((x.shape[0], cw - 1, x.shape[-1]))
+        tail = zeros_placed_like(x, (x.shape[0], cw - 1, x.shape[-1]))
     xp = torch.cat([tail.to(x.dtype), x], dim=1)          # (B, S+cw-1, di)
     s = x.shape[1]
     out = xp[:, 0:s] * w[0]
@@ -127,14 +130,38 @@ def mamba_mixer(params: dict, x: torch.Tensor, cfg, *,
     xin = F.silu(xin)
 
     a = -torch.exp(params["A_log"].float())               # (di, N), negative
-    dt = softplus(mode_dot(xin, params["w_dt"], mode).float()
-                  + params["dt_bias"].float())            # (B, S, di)
+    # On a mesh: d_inner on 'model' (the product may be a pending sum).
+    dt = softplus(constrain(mode_dot(xin, params["w_dt"], mode), BATCH, None, "model")
+                  .float() + params["dt_bias"].float())   # (B, S, di)
     bmat = mode_dot(xin, params["w_B"], mode).float()     # (B, S, N)
     cmat = mode_dot(xin, params["w_C"], mode).float()
     xf = xin.float()
 
-    h = state.h if state is not None else \
-        torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
+    args = (a, dt, xf, bmat, cmat, state.h if state is not None else None)
+    if isinstance(x, DTensor):
+        # Channels (d_inner) on 'model', as the reference constrains the
+        # chunk's decay and increment; the recurrence is per channel.
+        mesh = x.device_mesh
+        chan = resolve((b, s, di), (BATCH, None, "model"), mesh)
+        vec = chan[:2] + (None,)
+        st = (chan[0], chan[2], None)
+        y, h = local_map(_scan, list(args),
+                         [(chan[2], None), chan, chan, vec, vec, st], [chan, st])
+    else:
+        y, h = _scan(*args)
+    y = y + xf * params["D"].float()
+    y = y.to(mode.operand_dtype) * F.silu(z)
+    return mode_dot(y, params["w_out"], mode), SSMState(h=h, conv=new_tail)
+
+
+def _scan(a: torch.Tensor, dt: torch.Tensor, xf: torch.Tensor,
+          bmat: torch.Tensor, cmat: torch.Tensor, h: Optional[torch.Tensor]):
+    """The selective scan of :func:`mamba_mixer` on plain tensors: (y before
+    the skip term (B, S, di), the state after the last step)."""
+    b, s, di = dt.shape
+    if h is None:
+        h = torch.zeros((b, di, a.shape[1]), dtype=torch.float32,
+                        device=dt.device)
     if s == 1:   # decode: one recurrence step
         decay = torch.exp(dt[..., None] * a)                     # (B, 1, di, N)
         inc = (dt * xf)[..., None] * bmat[:, :, None, :]
@@ -164,6 +191,4 @@ def mamba_mixer(params: dict, x: torch.Tensor, cfg, *,
                                              x_c[:, sl], b_c[:, sl], c_c[:, sl])
             ys.append(y_b)
         y = torch.cat(ys, dim=1)[:, :s]
-    y = y + xf * params["D"].float()
-    y = y.to(mode.operand_dtype) * F.silu(z)
-    return mode_dot(y, params["w_out"], mode), SSMState(h=h, conv=new_tail)
+    return y, h

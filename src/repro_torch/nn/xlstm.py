@@ -18,8 +18,11 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
 from ..core.precision import ComputeMode, f32_einsum, f32_scalar, mode_dot
 from .layers import checkpoint_if_recording, rms_norm
+from .sharding import BATCH, local_map, reshape, resolve
 from .ssm import _causal_conv, _pad_time
 
 #: The stabilizer's start and the log input gate of a padded step.
@@ -136,35 +139,47 @@ def mlstm_block(params: dict, x: torch.Tensor, cfg, *,
     hd = di // h
     dev = x.device
 
-    if state is None:
-        cw = params["conv_w"].shape[0]
-        state = MLSTMState(
-            c=torch.zeros((b, h, hd, hd), dtype=torch.float32, device=dev),
-            n=torch.zeros((b, h, hd), dtype=torch.float32, device=dev),
-            m=torch.full((b, h), NEG_BIG, dtype=torch.float32, device=dev),
-            conv=torch.zeros((b, cw - 1, di), dtype=mode.operand_dtype,
-                             device=dev))
-
     xz = mode_dot(x, params["w_in"], mode)                # (B, S, 2di)
     xi, z = torch.chunk(xz, 2, dim=-1)
-    xc, new_tail = _causal_conv(xi, params["conv_w"].to(xi.dtype), state.conv)
+    xc, new_tail = _causal_conv(xi, params["conv_w"].to(xi.dtype),
+                                state.conv if state is not None else None)
     xc = F.silu(xc)
 
-    q = mode_dot(xc, params["wq"], mode).reshape(b, s, h, hd).float()
-    k = mode_dot(xc, params["wk"], mode).reshape(b, s, h, hd).float() \
+    q = reshape(mode_dot(xc, params["wq"], mode), (b, s, h, hd)).float()
+    k = reshape(mode_dot(xc, params["wk"], mode), (b, s, h, hd)).float() \
         / f32_scalar(math.sqrt(hd), dev)
-    v = mode_dot(xi, params["wv"], mode).reshape(b, s, h, hd).float()
-    log_i = mode_dot(xi, params["w_i"], ComputeMode.PRECISE).float() \
-        .reshape(b, s, h)
-    log_f = F.logsigmoid(mode_dot(xi, params["w_f"], ComputeMode.PRECISE)
-                         .float().reshape(b, s, h))
+    v = reshape(mode_dot(xi, params["wv"], mode), (b, s, h, hd)).float()
+    log_i = reshape(mode_dot(xi, params["w_i"], ComputeMode.PRECISE).float(),
+                    (b, s, h))
+    f_pre = reshape(mode_dot(xi, params["w_f"], ComputeMode.PRECISE).float(),
+                    (b, s, h))
 
-    y, c, n, m = _mlstm_cell(q, k, v, log_i, log_f, state)
-    y = rms_norm(y.reshape(b, s, h, hd), params["cell_norm"],
-                 cfg.norm_eps).reshape(b, s, di)
+    carry = (state.c, state.n, state.m) if state is not None else (None,) * 3
+    args = (q, k, v, log_i, f_pre) + carry
+    if isinstance(x, DTensor):
+        # Over the batch axes only: the cell mixes each head's channels.
+        mesh = x.device_mesh
+        rows = resolve((b,), (BATCH,), mesh)
+        y, c, n, m = local_map(_mlstm_cell_local, list(args), [rows] * 8, rows)
+    else:
+        y, c, n, m = _mlstm_cell_local(*args)
+    y = reshape(rms_norm(y, params["cell_norm"], cfg.norm_eps), (b, s, di))
     y = y.to(mode.operand_dtype) * F.silu(z)
     state = MLSTMState(c=c, n=n, m=m, conv=new_tail)
     return mode_dot(y, params["w_out"], mode), state
+
+
+def _mlstm_cell_local(q, k, v, log_i, f_pre, c, n, m):
+    """:func:`_mlstm_cell` on plain tensors, with the forget gate's
+    pre-activation ``f_pre`` (its log is taken here), from the zero state
+    (``m`` at ``NEG_BIG``) where ``c`` is None."""
+    log_f = F.logsigmoid(f_pre)
+    if c is None:
+        b, _, h, hd = q.shape
+        c = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=q.device)
+        n = torch.zeros((b, h, hd), dtype=torch.float32, device=q.device)
+        m = torch.full((b, h), NEG_BIG, dtype=torch.float32, device=q.device)
+    return _mlstm_cell(q, k, v, log_i, log_f, MLSTMState(c, n, m, None))
 
 
 def slstm_block(params: dict, x: torch.Tensor, cfg, *,
@@ -173,16 +188,34 @@ def slstm_block(params: dict, x: torch.Tensor, cfg, *,
     """sLSTM with diagonal recurrent gate weights + a 4/3 gated FFN;
     returns (out, the state after the last step)."""
     b, s, d = x.shape
-    if state is None:
-        zeros = torch.zeros((b, d), dtype=torch.float32, device=x.device)
-        state = SLSTMState(c=zeros, n=zeros, h=zeros,
-                           m=torch.full((b, d), NEG_BIG, dtype=torch.float32,
-                                        device=x.device))
-
     gates = mode_dot(x, params["w_gates"], mode).float()  # (B, S, 4d)
-    gates = gates.reshape(b, s, 4, d)
+    gates = reshape(gates, (b, s, 4, d))
     r = params["r_gates"].float()                          # (4, d)
-    c, n, h_prev, m = state
+    args = (gates, r) + (tuple(state) if state is not None else (None,) * 4)
+    if isinstance(x, DTensor):
+        # Over the batch axes only (the reference names no sharding here).
+        mesh = x.device_mesh
+        rows = resolve((b,), (BATCH,), mesh)
+        y, st = local_map(_slstm_cell, list(args), [rows, (None, None)] + [rows] * 4,
+                          rows)
+    else:
+        y, st = _slstm_cell(*args)
+    y = rms_norm(y.to(mode.operand_dtype), params["cell_norm"], cfg.norm_eps)
+    # The post-cell gated FFN, factor 4/3 (the xLSTM paper's sLSTM block).
+    hgate = F.gelu(mode_dot(y, params["w_ff_g"], mode), approximate="tanh") \
+        * mode_dot(y, params["w_ff_u"], mode)
+    return mode_dot(hgate, params["w_ff_d"], mode), SLSTMState(*st)
+
+
+def _slstm_cell(gates, r, c, n, h_prev, m):
+    """The sLSTM recurrence over time on plain tensors: gates (B, S, 4, d)
+    and r (4, d) -> (h for every step (B, S, d) f32, (c, n, h, m)); from the
+    zero state (``m`` at ``NEG_BIG``) where ``c`` is None."""
+    b, s, _, d = gates.shape
+    if c is None:
+        zeros = torch.zeros((b, d), dtype=torch.float32, device=gates.device)
+        c = n = h_prev = zeros
+        m = torch.full((b, d), NEG_BIG, dtype=torch.float32, device=gates.device)
     hs = []
     for t in range(s):
         # The four gates' recurrent terms in one product and one sum (the
@@ -198,9 +231,4 @@ def slstm_block(params: dict, x: torch.Tensor, cfg, *,
         h_prev = torch.sigmoid(go) * c / torch.clamp(n, min=1e-6)
         m = m_new
         hs.append(h_prev)
-    y = torch.stack(hs, dim=1).to(mode.operand_dtype)     # (B, S, d)
-    y = rms_norm(y, params["cell_norm"], cfg.norm_eps)
-    # The post-cell gated FFN, factor 4/3 (the xLSTM paper's sLSTM block).
-    hgate = F.gelu(mode_dot(y, params["w_ff_g"], mode), approximate="tanh") \
-        * mode_dot(y, params["w_ff_u"], mode)
-    return mode_dot(hgate, params["w_ff_d"], mode), SLSTMState(c, n, h_prev, m)
+    return torch.stack(hs, dim=1), (c, n, h_prev, m)

@@ -1,4 +1,4 @@
-"""Decode step time of two checkouts of this repository, alternated on one card.
+"""Decode step and prefill times of two checkouts, alternated on one card.
 
   python3 tools/ab_decode.py BASE_TREE NEW_TREE [--rounds 2] [--out FILE]
 
@@ -11,11 +11,13 @@ card from a seed, and after one untimed pass runs three passes of a
 prefill (batch 4, prompt 128, RELAXED, encoder frames or image tokens
 zero) and 31 greedy decode steps, as ``ServingEngine.generate`` does at
 phases 10-11's sizes; each step is timed on the host clock from the call of
-``decode_step`` to its greedy token on the host; then it counts the
-Python calls of one more step (``cProfile``).  Prints each child's median
-and least step ms and its call count, and a JSON summary (per tree the
-median and the least over its children's steps and the call count, and
-new over base); ``--out`` writes the summary to a file as well.
+``decode_step`` to its greedy token on the host, and each prefill from its
+call to its first token on the host; then it counts the Python calls of
+one more step (``cProfile``).  Prints each child's median and least step
+ms, its prefills' ms and its call count, and a JSON summary (per tree the
+median and the least over its children's steps, the least prefill and the
+call count, and new over base); ``--out`` writes the summary to a file as
+well.
 """
 from __future__ import annotations
 
@@ -61,12 +63,15 @@ def child(tree: str, arch: str, layers: int) -> None:
         aux = torch.zeros((4, cfg.encoder_seq or cfg.num_image_tokens, cfg.d_model),
                           device="cuda")
     mode = ComputeMode.RELAXED
-    ms = []
+    ms, prefill_ms = [], []
     with torch.inference_mode():
         for rep in range(1 + TIMED_PASSES):
+            t0 = time.perf_counter()
             logits, caches = M.prefill(params, prompts, cfg, capacity=160, aux=aux, mode=mode)
             tok = torch.argmax(logits, dim=-1)[:, None]
             tok.cpu()
+            if rep:
+                prefill_ms.append((time.perf_counter() - t0) * 1e3)
             for i in range(31):
                 t0 = time.perf_counter()
                 logits, caches = M.decode_step(params, caches, tok, 128 + i, cfg, mode=mode)
@@ -79,7 +84,8 @@ def child(tree: str, arch: str, layers: int) -> None:
         prof.enable()
         M.decode_step(params, caches, tok, 128 + 31, cfg, mode=mode)
         prof.disable()
-    print(json.dumps({"ms": ms, "python_calls": pstats.Stats(prof).total_calls}))
+    print(json.dumps({"ms": ms, "prefill_ms": prefill_ms,
+                      "python_calls": pstats.Stats(prof).total_calls}))
 
 
 def main(argv=None) -> int:
@@ -107,13 +113,15 @@ def main(argv=None) -> int:
             runs[which].append(got)
             print(f"{arch} ({layers or 'all'} layers) {which}: decode step ms median "
                   f"{statistics.median(got['ms']):.2f}, min {min(got['ms']):.2f}; "
+                  f"prefill ms {', '.join(f'{t:.2f}' for t in got['prefill_ms'])}; "
                   f"{got['python_calls']} Python calls a step", flush=True)
         summary[arch] = {which: {"median_ms": statistics.median(m for g in v for m in g["ms"]),
                                  "min_ms": min(m for g in v for m in g["ms"]),
                                  "child_medians_ms": [statistics.median(g["ms"]) for g in v],
+                                 "prefill_min_ms": min(m for g in v for m in g["prefill_ms"]),
                                  "python_calls": v[0]["python_calls"]}
                          for which, v in runs.items()}
-        for stat in ("median_ms", "min_ms"):
+        for stat in ("median_ms", "min_ms", "prefill_min_ms"):
             summary[arch][f"new_over_base_{stat[:-3]}"] = (summary[arch]["new"][stat]
                                                           / summary[arch]["base"][stat])
     print(json.dumps(summary))
