@@ -202,7 +202,10 @@ Phases; each raises on failure, so a failing phase never exits 0:
    2x16x16, and one pair of every other arch at one pattern period, each
    family and step kind at least once), each of which must exit 0 with
    ``status: "ok"``: per-device argument and temp GB, FLOPs, collectives
-   and seconds.  All the dry runs start first and run beside (a).
+   and seconds; Qwen2-7B's full-depth decode must move its K/V cache by
+   all-to-all (an ``all-to-all`` entry, all-gathers under 0.05 GB a
+   device) with the all-reduces it made before the cache moved.
+   All the dry runs start first and run beside (a).
 
 With ``--baseline TREE`` (an older checkout of this repository that has
 the int8 datapath, e.g. unpacked from ``git archive`` under ``build/``),
@@ -1785,6 +1788,16 @@ MESH_CHILDREN = [("qwen2-7b", "decode_32k", 0, False), ("qwen2-7b", "decode_32k"
                  ("gemma2-9b", "long_500k", 1, False),
                  ("qwen3-32b", "decode_32k", 1, False),
                  ("command-r-plus-104b", "decode_32k", 1, False)]
+#: Phase 13(b): Qwen2-7B decode_32k at full depth, per device a step.  Its
+#: K/V cache moves onto attention's head-dim split by all-to-all, so what
+#: is still gathered is each new token's (the whole cache was 15.04 GB on
+#: 16x16); the all-reduces (count, bytes) are the ones the dry run made
+#: before the cache moved, on a "cuda" mesh.  (A "cpu" mesh's fake group
+#: reads one more all-reduce, the final norm's 32 B, or 16 B on 2x16x16,
+#: sum of squares.)
+QWEN2_DECODE_GATHER_BYTES = 0.05e9
+QWEN2_DECODE_ALL_REDUCE = {"16x16": (1849, 825_352_192),
+                           "2x16x16": (1849, 412_676_096)}
 
 
 def mesh_args(cfg, spec, device: str, seed: int):
@@ -2005,6 +2018,16 @@ def phase13(repo: str) -> dict:
                   f"temp {mem['temp_bytes'] / 1e9:.3f} GB, {res['flops_per_device']:.4g} FLOPs; "
                   f"{coll}; {res['lower_seconds']} s")
             children.append(dict(res, tag=tag))
+            if tag.startswith("qwen2-7b.decode_32k.") and tag.endswith(".g0"):
+                c, mesh_name = res["collectives"], tag.split(".")[2]
+                check(c.get("all-gather", {"bytes": 0})["bytes"] < QWEN2_DECODE_GATHER_BYTES,
+                      f"dry run {tag}: all-gather {c.get('all-gather')} not under "
+                      f"{QWEN2_DECODE_GATHER_BYTES / 1e9} GB a device")
+                check("all-to-all" in c, f"dry run {tag}: no all-to-all in {c}")
+                ar = c.get("all-reduce", {})
+                check((ar.get("count"), ar.get("bytes")) == QWEN2_DECODE_ALL_REDUCE[mesh_name],
+                      f"dry run {tag}: all-reduce {ar}, not "
+                      f"{QWEN2_DECODE_ALL_REDUCE[mesh_name]}")
         out["production"] = children
         out["seconds"] = time.perf_counter() - t0
         return out

@@ -63,16 +63,35 @@ class LayerPlan:
         return (self.impl, self.parallelism.value, self.mode.value, self.u,
                 vb, qp)
 
+    def describe(self) -> str:
+        bits = [self.impl, self.parallelism.value, self.mode.value,
+                f"u={self.u}"]
+        return " ".join(bits) + (f"  [{self.reason}]" if self.reason else "")
+
 
 DEFAULT_LAYER_PLAN = LayerPlan()
 
 
 @dataclass(frozen=True)
 class GroupPlan:
-    """How one fused group executes: the anchor's plan + the fused signature."""
+    """How one fused group executes: the anchor's plan + the fused signature.
+    ``cache_key`` covers both, so a fused group's plan never aliases the
+    anchor layer's standalone one."""
     name: str
     members: Tuple[Tuple[str, str], ...]
     plan: LayerPlan
+
+    @property
+    def fused(self) -> bool:
+        return len(self.members) > 1
+
+    @property
+    def cache_key(self) -> Tuple:
+        return (self.members, self.plan.cache_key)
+
+    def describe(self) -> str:
+        fused = "+".join(n for n, _ in self.members)
+        return f"{fused}: {self.plan.describe()}"
 
 
 @dataclass
@@ -127,6 +146,10 @@ class ExecutionPlan:
         for name, qp in qparams.items():
             new[name] = replace(new.get(name, DEFAULT_LAYER_PLAN), qparams=qp)
         return self._with_layers(new)
+
+    @property
+    def modes(self) -> Dict[str, ComputeMode]:
+        return {n: p.mode for n, p in self.layers.items()}
 
     def fingerprint(self) -> str:
         """Hash of what changes the program: network name, device identity,

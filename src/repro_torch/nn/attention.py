@@ -80,17 +80,16 @@ def _chunk_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mesh = q.device_mesh
     b, sq, h, hd = q.shape
     kv = k.shape[2]
-    rep = h // kv
-    msize = S.axis_size(mesh, "model")
+    split = _model_split(h, kv, hd, S.axis_size(mesh, "model"))
     bx = S.BATCH
-    if kv % msize == 0 and kv >= msize:          # KV-head groups
+    if split == "groups":
         spec = (bx, None, "model", None)
         return S.local_map(functools.partial(_chunk_attn_local, **kw),
                            [q, k, v, q_pos, k_pos],
                            [_r(q, spec), _r(k, spec), _r(v, spec), None, None],
                            _r(q, spec))
-    if rep % msize == 0 and rep >= msize:        # query heads of a group
-        q5 = S.reshape(q, (b, sq, kv, rep, hd))
+    if split == "rep":
+        q5 = S.reshape(q, (b, sq, kv, h // kv, hd))
         spec5 = (bx, None, None, "model", None)
 
         def by_rep(q5, k, v, q_pos, k_pos):
@@ -103,7 +102,7 @@ def _chunk_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           [_r(q5, spec5), _r(k, rest), _r(v, rest), None, None],
                           _r(q5, spec5))
         return S.reshape(out, (b, sq, h, hd))
-    spec = (bx, None, None, "model") if hd % msize == 0 else (bx, None, None, None)
+    spec = (bx, None, None, "model" if split == "hd" else None)
     # Each rank's scores are a partial sum over its slice of the head dim;
     # what follows (p @ v) is split over 'model' again, so the gradient of
     # the sum is the sum of the ranks' gradients.
@@ -114,6 +113,29 @@ def _chunk_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        [q, k, v, q_pos, k_pos],
                        [_r(q, spec), _r(k, spec), _r(v, spec), None, None],
                        _r(q, spec))
+
+
+def _model_split(h: int, kv: int, hd: int, msize: int) -> Optional[str]:
+    """The reference's split of attention over 'model' (of size ``msize``):
+    ``"groups"`` (the KV heads), ``"rep"`` (each group's query heads),
+    ``"hd"`` (the head dim) or None, the first that 'model' divides."""
+    rep = h // kv
+    if kv % msize == 0 and kv >= msize:
+        return "groups"
+    if rep % msize == 0 and rep >= msize:
+        return "rep"
+    return "hd" if hd % msize == 0 else None
+
+
+def _split_heads(fused: torch.Tensor, shape, h: int) -> torch.Tensor:
+    """Fused (B, S, KV*hd) K or V as ``shape`` (B, S, KV, hd), laid out as
+    :func:`_chunk_attn` asks for it: under the head-dim split, each rank's
+    lanes of every head by one all-to-all (:func:`sharding.split_lanes`),
+    where reshaping the fused shard would gather it whole."""
+    if isinstance(fused, S.DTensor) and _model_split(
+            h, shape[2], shape[3], S.axis_size(fused.device_mesh, "model")) == "hd":
+        return S.split_lanes(fused, shape)
+    return S.reshape(fused, shape)
 
 
 def _r(t, axes):
@@ -305,8 +327,8 @@ def self_attention(params: dict, x: torch.Tensor, cfg, *,
         cache.v[:, slot:slot + s] = S.reshape(v, (b, s, kv * hd)).to(cache.v.dtype)
         new_cache = cache
         k_pos = ring_positions(cap, cache_pos, x.device)
-        out = _chunk_attn(q, S.reshape(cache.k, (b, cap, kv, hd)),
-                          S.reshape(cache.v, (b, cap, kv, hd)),
+        out = _chunk_attn(q, _split_heads(cache.k, (b, cap, kv, hd), h),
+                          _split_heads(cache.v, (b, cap, kv, hd), h),
                           q_pos=positions, k_pos=k_pos, causal=causal,
                           window=window, logit_cap=cfg.attn_logit_softcap,
                           scale=scale)
@@ -348,7 +370,7 @@ def cross_attention(params: dict, x: torch.Tensor,
     if precomputed_kv is not None:
         kf, vf = precomputed_kv
         se = kf.shape[1]
-        k, v = S.reshape(kf, (b, se, kvh, hd)), S.reshape(vf, (b, se, kvh, hd))
+        k, v = (_split_heads(t, (b, se, kvh, hd), h) for t in (kf, vf))
     else:
         se = kv_src.shape[1]
         k = S.reshape(mode_dot(kv_src, params["wk"].reshape(cfg.d_model, kvh * hd),
@@ -362,4 +384,6 @@ def cross_attention(params: dict, x: torch.Tensor,
                       window=0, logit_cap=cfg.attn_logit_softcap, scale=scale)
     out = mode_dot(S.reshape(out, (b, s, h * hd)),
                    params["wo"].reshape(h * hd, cfg.d_model), mode)
+    if precomputed_kv is not None:
+        return out, precomputed_kv
     return out, (S.reshape(k, (b, se, kvh * hd)), S.reshape(v, (b, se, kvh * hd)))

@@ -12,11 +12,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor import DTensor, Partial, Shard
 
 from ..core.precision import ComputeMode, mode_dot
 from .sharding import (BATCH, axis_size, carry_mesh, constrain, coordinate,
-                       local_map, mesh_axes, placements, replicated, resolve)
+                       entry_axes, local_map, mesh_axes, placements, replicated,
+                       resolve)
 
 
 def checkpoint_if_recording(fn, *args):
@@ -91,16 +92,23 @@ def mlp(params: dict, x: torch.Tensor, *, activation: str = "silu",
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``table[tokens]``.  On DTensors a vocabulary-parallel lookup: each
     rank looks up the tokens of its slice of the vocabulary ('model'),
-    zeros elsewhere, and the sum over 'model' is left pending."""
+    zeros elsewhere, and the sum over 'model' is left pending.  A split of
+    the table's embed dim (weights sharded in 2-D) stays on the mesh axes
+    the tokens' batch does not use: there each rank looks up its slice of
+    the embed dim, where gathering the table would move all of it."""
     if not isinstance(table, DTensor):
         return table[tokens]
     mesh = table.device_mesh
     tok_spec = resolve(tokens.shape, (BATCH,), mesh)
     vocab = resolve(table.shape, ("model",), mesh)[0]
-    out_spec = tok_spec + (None,)
+    used = set(entry_axes(tok_spec[0]))
+    keep = tuple(a for a, p in zip(mesh_axes(mesh), table.placements)
+                 if p == Shard(1) and a not in used)
+    dim = keep[0] if len(keep) == 1 else (keep or None)
+    out_spec = tok_spec + (dim,)
     if vocab is None or axis_size(mesh, "model") == 1:
         return local_map(lambda t, i: t[i], [table, tokens],
-                         [(None, None), tok_spec], out_spec)
+                         [(None, dim), tok_spec], out_spec)
     n = table.shape[0] // axis_size(mesh, "model")
 
     def lookup(t, i):
@@ -110,7 +118,7 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         return torch.where(mine[..., None], rows, torch.zeros_like(rows))
     pl = list(placements(out_spec, mesh))
     pl[mesh_axes(mesh).index("model")] = Partial()
-    return local_map(lookup, [table, tokens], [("model", None), tok_spec],
+    return local_map(lookup, [table, tokens], [("model", dim), tok_spec],
                      tuple(pl))
 
 

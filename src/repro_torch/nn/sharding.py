@@ -379,6 +379,50 @@ def reshape(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     return _Reshape.apply(x, new)
 
 
+def split_lanes(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``x.reshape(shape)`` where ``shape`` splits ``x``'s last dimension F
+    into (G, L), sharded on L where ``x`` is a DTensor with F sharded over
+    'model' alone: rank r of m holds columns [r F/m, (r+1) F/m) and gets
+    lanes [r L/m, (r+1) L/m) of every group, by one all-to-all over
+    'model'.  With w = L/m, a rank's F/m = G w columns are G whole runs of
+    w lanes; global run j belongs to group j // m and goes to rank j % m,
+    so each rank receives its G runs in group order.  Where ``L % m != 0``,
+    F is not sharded so, or autograd records (the all-to-all has no
+    gradient): :func:`reshape` (which gathers F)."""
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    mesh, names = x.device_mesh, mesh_axes(x.device_mesh)
+    g, lanes = shape[-2], shape[-1]
+    d = x.ndim - 1
+    n = names.index("model") if "model" in names else -1
+    m = mesh.size(n) if n >= 0 else 1
+    on_f = [k for k, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == d]
+    if (tuple(shape[:-2]) != tuple(x.shape[:-1]) or g * lanes != x.shape[-1]
+            or on_f != [n] or lanes % m
+            or (torch.is_grad_enabled() and x.requires_grad)):
+        return reshape(x, shape)
+    from torch.distributed import _functional_collectives as funcol
+    r = mesh.get_coordinate()[n]
+    dest = [(r * g + i) % m for i in range(g)]          # each local run's rank
+    order = sorted(range(g), key=lambda i: dest[i])
+    runs = x.to_local().unflatten(-1, (g, lanes // m)).movedim(-2, 0)
+    pieces, start = [], 0
+    for k in range(1, g + 1):                           # consecutive runs at once
+        if k == g or order[k] != order[k - 1] + 1:
+            pieces.append(runs[order[start]:order[k - 1] + 1])
+            start = k
+    send = torch.cat(pieces) if len(pieces) > 1 else runs.contiguous()
+    recv = funcol.all_to_all_single(
+        send, [sum((j * m + r) // g == s for j in range(g)) for s in range(m)],
+        [dest.count(t) for t in range(m)], mesh.get_group("model"))
+    if isinstance(recv, funcol.AsyncCollectiveTensor):
+        recv = recv.wait()
+    pl = [Shard(d + 1) if k == n else p for k, p in enumerate(x.placements)]
+    return DTensor.from_local(recv.movedim(0, -2).contiguous(), mesh, pl,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
 class _Reshape(torch.autograd.Function):
     """A DTensor reshape whose backward reshapes the gradient back by the
     same rule (the gradient may be sharded where the forward was not)."""

@@ -62,7 +62,20 @@ def _cases():
         ("xlstm", small("xlstm-350m")),
         ("encoder-decoder", small("whisper-small")),
         ("cross-attention", small("llama-3.2-vision-90b")),
+        ("encoder-decoder-head-dim", dataclasses.replace(
+            small("whisper-small"), num_heads=3, num_kv_heads=3, head_dim=16)),
     ]
+
+
+#: Cases whose attention splits the head dim over 'model': their decode
+#: moves the fused K/V cache (and the cross-attention's K/V) onto the
+#: head-dim split by one all-to-all each (``sharding.split_lanes``).
+HEAD_DIM_CASES = ("dense-head-dim", "encoder-decoder-head-dim")
+#: (mesh (data, model), KV heads, head dim) of the lane-split exactness
+#: checks: groups that straddle ranks, more groups than ranks, and a head
+#: dim 'model' does not divide (the gather path).
+LANE_SHAPES = [((2, 2), 3, 16), ((2, 2), 5, 8), ((1, 4), 3, 16), ((1, 4), 5, 8),
+               ((1, 4), 2, 6)]
 
 
 def _child_env() -> dict:
@@ -103,10 +116,10 @@ def _gloo_worker(rank, world, init_file, out_path):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                             world_size=world)
+    results = {**_lane_checks(rank), **_embed_checks(rank)}
     mesh = make_host_mesh(data=2, model=2, device_type="cpu")
     precise = ComputeMode.PRECISE
     full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
-    results = {}
     for i, (name, cfg) in enumerate(_cases()):
         g = torch.Generator().manual_seed(3)
         aux = None
@@ -159,6 +172,8 @@ def _gloo_worker(rank, world, init_file, out_path):
                 # The step moves the params in place: keep where they start.
                 start = [[full(t).detach().clone() for t in M.tree_leaves(a[0])]
                          for a in (sharded, plain)]
+            if kind == "decode" and name in HEAD_DIM_CASES:
+                out.update(_against_the_gather_path(spec, args, mesh, full))
             real = run_step(dataclasses.replace(spec, args=sharded), mesh)
             ref = spec.fn(*plain)
             if kind == "train":
@@ -186,6 +201,99 @@ def _gloo_worker(rank, world, init_file, out_path):
     dist.destroy_process_group()
 
 
+def _lane_checks(rank) -> dict:
+    """``sharding.split_lanes`` on each of LANE_SHAPES: this rank's result
+    against the slice of the full reshape it should hold, bit for bit, its
+    placements, and the collectives it made."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.dryrun import LocalCost
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.nn import sharding as S
+    out = {}
+    for (data, model), kv, hd in LANE_SHAPES:
+        mesh = make_host_mesh(data=data, model=model, device_type="cpu")
+        b, cap = 4, 5
+        g = torch.Generator().manual_seed(kv * hd)
+        for dt in (torch.float32, torch.bfloat16):
+            whole = torch.randn((b, cap, kv * hd), generator=g).to(dt)
+            x = S.distribute(whole, mesh, S.cache_spec(whole.shape, mesh))
+            cost = LocalCost()
+            with cost:
+                y = S.split_lanes(x, (b, cap, kv, hd))
+            want = whole.reshape(b, cap, kv, hd)
+            coord = mesh.get_coordinate()
+            if data > 1:
+                want = want.narrow(0, coord[0] * (b // data), b // data)
+            lanes = hd % model == 0
+            if lanes:
+                want = want.narrow(3, coord[1] * (hd // model), hd // model)
+            out[f"lanes/{data}x{model}/{kv}x{hd}/{dt}"] = {
+                "equal": torch.equal(y.to_local(), want),
+                "placements": tuple(y.placements) == (
+                    x.placements[0], Shard(3) if lanes else Replicate()),
+                "split": lanes,
+                "collectives": {k: dict(v) for k, v in cost.collectives.items()},
+                "rank": rank}
+    return out
+
+
+def _embed_checks(rank) -> dict:
+    """``layers.embed`` of a table sharded in 2-D (vocab on 'model', embed
+    on 'data') on the 2x2 mesh, for a batch of 1 (not split: the lookup
+    keeps the embed split) and of 2 (split over 'data': the table's embed
+    dim is gathered): the looked-up rows bit for bit, and the collectives
+    of the lookup itself."""
+    import torch
+
+    from repro_torch.launch.dryrun import LocalCost
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.nn import layers as L
+    from repro_torch.nn import sharding as S
+    mesh = make_host_mesh(data=2, model=2, device_type="cpu")
+    g = torch.Generator().manual_seed(7)
+    table = torch.randn((8, 6), generator=g).to(torch.bfloat16)
+    out = {}
+    for b in (1, 2):
+        tokens = torch.randint(0, 8, (b, 3), generator=g, dtype=torch.int32)
+        t = S.distribute(table, mesh, ("model", "data"))
+        ids = S.distribute(tokens, mesh, S.resolve(tokens.shape, (S.BATCH,), mesh))
+        cost = LocalCost()
+        with cost:
+            x = L.embed(t, ids)
+        out[f"embed/{b}"] = {"equal": torch.equal(x.full_tensor(), table[tokens.long()]),
+                             "collectives": {k: dict(v) for k, v in cost.collectives.items()},
+                             "rank": rank}
+    return out
+
+
+def _against_the_gather_path(spec, args, mesh, full) -> dict:
+    """The sharded decode with its K/V moved by all-to-all against the
+    same decode with them gathered (``sharding.reshape``): logits and every
+    cache leaf bit for bit."""
+    import dataclasses
+
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.dryrun import run_step
+    from repro_torch.nn import attention as A
+    from repro_torch.nn import model as M
+    from repro_torch.nn import sharding as S
+    runs, colls = [], []
+    for split in (S.split_lanes, S.reshape):
+        A.S.split_lanes, keep = split, S.split_lanes
+        try:
+            res = run_step(dataclasses.replace(spec, args=SP.shard_like(spec.args, args)),
+                           mesh)
+        finally:
+            A.S.split_lanes = keep
+        runs.append([full(t) for t in M.tree_leaves(res["out"])])
+        colls.append(res["collectives"])
+    return {"gather_path_equal": all(a.equal(b) for a, b in zip(*runs))
+            and len(runs[0]) == len(runs[1]) > 1,
+            "collectives": colls[0], "gather_path_collectives": colls[1]}
+
+
 @pytest.fixture(scope="module")
 def gloo_run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("gloo")
@@ -200,7 +308,8 @@ def gloo_run(tmp_path_factory):
 
 
 CASE_NAMES = ["dense-kv-groups", "dense-query-heads", "dense-head-dim", "moe",
-              "hybrid-ssm", "xlstm", "encoder-decoder", "cross-attention"]
+              "hybrid-ssm", "xlstm", "encoder-decoder", "cross-attention",
+              "encoder-decoder-head-dim"]
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -226,6 +335,58 @@ def test_dry_run_counts_the_real_run_s_local_bytes_and_flops(gloo_run, case, kin
     assert r["dry"]["status"] == "ok"
     assert r["dry"]["argument_bytes"] == r["real"]["argument_bytes"]
     assert r["dry"]["flops"] == r["real"]["flops"] > 0
+
+
+@pytest.mark.parametrize("shape", LANE_SHAPES, ids=lambda s: "{}x{}-kv{}-hd{}".format(*s[0], *s[1:]))
+def test_split_lanes_holds_each_rank_s_lanes_bit_for_bit(gloo_run, shape):
+    """Every rank's result is its slice of the full reshape: its batch rows
+    and, where 'model' divides the head dim, its lanes of every head, moved
+    by one all-to-all and nothing else; else the whole head dim, gathered."""
+    (data, model), kv, hd = shape
+    rows = [r for res in gloo_run for k, r in res.items()
+            if k.startswith(f"lanes/{data}x{model}/{kv}x{hd}/")]
+    assert len(rows) == 4 * 2
+    for r in rows:
+        assert r["equal"] and r["placements"], r
+        kinds = r["collectives"]
+        if r["split"]:
+            assert set(kinds) == {"all-to-all"} and kinds["all-to-all"]["count"] == 1, r
+        else:
+            assert "all-to-all" not in kinds and kinds["all-gather"]["count"] >= 1, r
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_embedding_lookup_keeps_the_embed_split_the_batch_does_not_use(gloo_run, batch):
+    """A batch of 1 looks up each rank's slice of the 2-D-sharded table's
+    embed dim with no gather; a batch split over 'data' gathers that dim
+    (the FSDP gather); both give the table's rows bit for bit."""
+    rows = [res[f"embed/{batch}"] for res in gloo_run]
+    for r in rows:
+        assert r["equal"], r
+        assert ("all-gather" in r["collectives"]) is (batch == 2), r
+
+
+@pytest.mark.parametrize("case", HEAD_DIM_CASES)
+def test_head_dim_decode_moves_the_cache_by_all_to_all(gloo_run, case):
+    """The decode of a config whose attention splits the head dim moves
+    each layer's K and V cache (and a cross-attention's K and V) by one
+    all-to-all of the local shard where the gather path gathered them
+    whole, makes every other collective as that path does, and gives its
+    logits and caches bit for bit."""
+    cfg = dict(_cases())[case]
+    n, fused = cfg.num_layers, cfg.num_kv_heads * cfg.resolved_head_dim
+    seqs = [SEQ] + ([cfg.encoder_seq] if cfg.is_encoder_decoder else [])
+    shard = sum((BATCH // 2) * s * (fused // 2) * 2 for s in seqs)    # bf16, 2x2 mesh
+    for res in gloo_run:
+        r = res[f"{case}/decode"]
+        assert r["gather_path_equal"], r
+        new, old = r["collectives"], r["gather_path_collectives"]
+        assert new.pop("all-to-all") == {"count": 2 * n * len(seqs), "bytes": 2 * n * shard}
+        assert "all-to-all" not in old
+        gathered = old.pop("all-gather")
+        assert new.pop("all-gather") == {"count": gathered["count"] - 2 * n * len(seqs),
+                                         "bytes": gathered["bytes"] - 2 * n * 2 * shard}
+        assert new == old
 
 
 ONE_RANK_CHILD = r"""
@@ -357,6 +518,54 @@ def test_fake_group_dry_run_on_the_production_mesh_gives_the_reference_s_keys_an
         for kind, c in res["collectives"].items():
             assert kind in ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                             "collective-permute") and c["count"] > 0 and c["bytes"] > 0
+
+
+PRODUCTION_CHILD = r"""
+import json
+from repro_torch.launch.dryrun import run_pair
+print(json.dumps({f"{a}/{sh}": run_pair(a, sh, layers_override=1, device="cpu")
+                  for a, sh in (("qwen2-7b", "decode_32k"),
+                                ("command-r-plus-104b", "long_500k"))}))
+"""
+
+
+@pytest.fixture(scope="module")
+def production_runs():
+    """One pattern period, full width, on the fake 16x16 group (CPU)."""
+    proc = subprocess.run([sys.executable, "-c", PRODUCTION_CHILD], cwd=ROOT,
+                          env=_child_env(), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_qwen2_decode_dry_run_moves_the_cache_by_all_to_all_on_the_production_mesh(
+        production_runs):
+    """Qwen2-7B decode_32k: KV = 4 and a group's 7 query heads do not
+    divide 'model' = 16, so attention splits the head dim.  Each of K and V
+    moves its local shard (8 x 32,768 x 32 bf16) by one all-to-all; what
+    is still gathered is the new token's (six small gathers, where the
+    whole cache was 537,018,368 B); the all-reduces, the arguments and the
+    FLOPs are unchanged."""
+    res = production_runs["qwen2-7b/decode_32k"]
+    c = res["collectives"]
+    assert res["status"] == "ok" and res["mesh"] == "16x16"
+    assert c["all-gather"]["bytes"] <= 200_000, c
+    assert c["all-to-all"] == {"count": 2, "bytes": 2 * 16_777_216}, c
+    assert c["all-reduce"] == {"count": 68, "bytes": 29_532_192}, c
+    assert res["memory"]["argument_bytes"] == 198_956_644
+    assert res["flops_per_device"] == 1_012_924_416
+
+
+def test_batch_of_one_looks_up_its_slice_of_a_2d_sharded_embedding(production_runs):
+    """Command-R+ long_500k: the tied embedding is sharded (vocab on
+    'model', embed on 'data') and the batch of 1 does not split, so each
+    rank looks up its slice of the embed dim as the reference does, where
+    gathering the table's shard over 'data' moved 393,216,000 B."""
+    res = production_runs["command-r-plus-104b/long_500k"]
+    c = res["collectives"]
+    assert res["status"] == "ok"
+    assert c["all-gather"]["bytes"] < 1_000_000, c
+    assert c["all-to-all"] == {"count": 2, "bytes": 2 * 4_194_304}, c
 
 
 if __name__ == "__main__":
