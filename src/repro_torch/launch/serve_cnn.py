@@ -65,7 +65,13 @@ def main(argv=None):
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write a JSON metrics snapshot here")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
-                    help="write trace spans as JSONL here")
+                    help="write trace spans as JSONL here: synthesis.*, "
+                         "serve.batch_wait, serve.dispatch and its phases "
+                         "(serve.lookup, .stack, .copy_in, .replay, "
+                         ".copy_out, .scatter), serve.request, and on the "
+                         "card dev.copy_in, dev.replay and "
+                         "serve.clock_anchor; joined by the 'request' and "
+                         "'bucket' attributes")
     args = ap.parse_args(argv)
 
     config = ServingConfig(max_batch=args.max_batch,

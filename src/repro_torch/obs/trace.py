@@ -5,14 +5,29 @@ A :class:`Tracer` records nested, timed spans:
   synthesis    Stage-A planning, each fixed-point iteration (autotune +
                Stage-C mode probes), the validation gate and its
                demotions, Stage-D AOT compiles (``synthesis.*``);
-  serving      batcher enqueue→flush waits, replica bucket dispatch,
-               steal and shed events (``serve.*``).
+  serving      batcher enqueue→flush waits, replica bucket dispatch and
+               its host phases (lookup, stack, copy in, replay, copy out,
+               scatter), each request from enqueue to answer, steal and
+               shed events (``serve.*``); on the card, each bucket's copy
+               in and replay as the device ran them (``dev.*``), timed by
+               CUDA events that the tier maps onto the tracer's clock
+               through an anchor taken at an idle stream
+               (``serve.clock_anchor``).
+
+Spans of one request and of one bucket share ids: a traced tier gives
+every request a ``request`` id and every released bucket a ``bucket`` id
+(:meth:`Tracer.new_id`), carried as attributes by ``serve.batch_wait``,
+``serve.dispatch``, its children, the ``dev.*`` spans and
+``serve.request``; joined by them, one request's queue wait, flush,
+dispatch phases and answer can be read from the JSONL.
 
 Spans nest per thread: a span opened inside another (on the same thread)
 records the outer span as its parent, and closing is LIFO — the span
 taxonomy is a forest whose invariants ("every span closes", "parents
 outlive children") are pinned by tests/test_obs.py.  Completed spans are
-appended to one shared list under a lock; the per-thread *open* stack is
+appended to one shared list under a lock (:meth:`Tracer.record_spans`
+appends many under one acquisition); span and correlation ids are drawn
+from ``itertools.count`` without it.  The per-thread *open* stack is
 thread-local, so replicas tracing concurrently never corrupt each
 other's nesting.
 
@@ -25,12 +40,13 @@ upload.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 #: Attribute values are kept JSON-scalar so export never fails mid-run.
 _SCALARS = (str, int, float, bool, type(None))
@@ -82,7 +98,9 @@ class Tracer:
         self.enabled = enabled
         self._lock = threading.Lock()
         self._spans: List[Span] = []
-        self._next_id = 0
+        # next() of a count is one C call, atomic under the interpreter lock.
+        self._span_ids = itertools.count(1)
+        self._ids: Dict[str, "itertools.count[int]"] = {}
         self._tls = threading.local()
 
     # -- internals -----------------------------------------------------------
@@ -96,10 +114,7 @@ class Tracer:
                   attrs: Dict[str, object]) -> Span:
         stack = self._stack()
         parent = stack[-1].span_id if stack else None
-        with self._lock:
-            self._next_id += 1
-            sid = self._next_id
-        return Span(name=name, span_id=sid, parent_id=parent,
+        return Span(name=name, span_id=next(self._span_ids), parent_id=parent,
                     t_start=t_start, thread=threading.current_thread().name,
                     attrs=dict(attrs))
 
@@ -152,6 +167,31 @@ class Tracer:
         s = self._new_span(name, t_start, attrs)
         self._finish(s, t_end)
         return s
+
+    def record_spans(self, records: Iterable[
+            Tuple[str, float, float, Optional[Span], Dict[str, object]]]) -> None:
+        """Record many retroactive spans, each ``(name, t_start, t_end,
+        parent, attrs)`` with ``parent`` an open or finished :class:`Span`
+        or None (a root), under one acquisition of the lock: a served
+        bucket's phases, requests and device spans at once."""
+        if not self.enabled:
+            return
+        thread = threading.current_thread().name
+        spans = [Span(name=name, span_id=next(self._span_ids),
+                      parent_id=parent.span_id if parent is not None else None,
+                      t_start=t0, t_end=t1, thread=thread, attrs=attrs)
+                 for name, t0, t1, parent, attrs in records]
+        with self._lock:
+            self._spans.extend(spans)
+
+    def new_id(self, kind: str) -> int:
+        """A fresh id of ``kind`` (1, 2, ... per kind), without a lock: the
+        ``request`` and ``bucket`` ids that the serving tier's spans share
+        as attributes."""
+        ids = self._ids.get(kind)
+        if ids is None:
+            ids = self._ids.setdefault(kind, itertools.count(1))
+        return next(ids)
 
     # -- reads / export ------------------------------------------------------
     def finished(self) -> List[Span]:

@@ -110,6 +110,7 @@ class Request:
     image: Any                       # (C, H, W) array
     future: ServingFuture
     enqueue_time: float
+    request_id: Optional[int] = None     # given only when tracing
 
 
 @dataclass
@@ -117,6 +118,7 @@ class Bucket:
     """One released batch: the requests plus the pow-2 shape to pad to."""
     requests: List[Request]
     batch: int                       # pow2_bucket(len(requests))
+    bucket_id: Optional[int] = None      # given only when tracing
 
     @property
     def padding(self) -> int:
@@ -162,7 +164,9 @@ class DynamicBatcher:
 
     def submit(self, image: Any) -> ServingFuture:
         fut = ServingFuture()
-        req = Request(image=image, future=fut, enqueue_time=time.perf_counter())
+        req = Request(image=image, future=fut, enqueue_time=time.perf_counter(),
+                      request_id=None if self.tracer is None
+                      else self.tracer.new_id("request"))
         with self.not_empty:
             self._queue.append(req)
             self._observe_depth_locked()
@@ -241,8 +245,9 @@ class DynamicBatcher:
         if self.tracer is not None:
             # Retroactive: the enqueue→flush wait of this bucket, anchored
             # at its oldest request (same perf_counter base as the tracer).
+            bucket.bucket_id = self.tracer.new_id("bucket")
             self.tracer.record_span(
                 "serve.batch_wait", reqs[0].enqueue_time, t,
                 reason=reason, batch=bucket.batch, requests=len(reqs),
-                **self._labels)
+                bucket=bucket.bucket_id, **self._labels)
         return bucket

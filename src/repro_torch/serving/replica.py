@@ -282,10 +282,12 @@ class ReplicaSet:
             return None
         self.replicas[thief].stolen_requests += len(stolen)
         self._stolen.inc(len(stolen))
+        bucket = Bucket(requests=stolen, batch=pow2_bucket(len(stolen)))
         if self.tracer is not None:
+            bucket.bucket_id = self.tracer.new_id("bucket")
             self.tracer.event("serve.steal", thief=thief, victim=victim,
-                              requests=len(stolen))
-        return Bucket(requests=stolen, batch=pow2_bucket(len(stolen)))
+                              requests=len(stolen), bucket=bucket.bucket_id)
+        return bucket
 
     def _take_for(self, i: int, force: bool = False) -> Optional[Bucket]:
         """One replica's next bucket: its own queue first, then a steal."""
