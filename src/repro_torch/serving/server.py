@@ -3,12 +3,23 @@
 The end of the Cappuccino pipeline meets traffic here (DESIGN.md §6):
 single-image requests are coalesced by a
 :class:`~repro_torch.serving.batcher.DynamicBatcher` into power-of-two
-buckets, each bucket is stacked, zero-padded, copied to the program's
-device once and dispatched through a
+buckets, each bucket is dispatched through a
 :class:`~repro_torch.serving.program_cache.ProgramCache`-held
 :class:`~repro_torch.core.synthesizer.BatchProgram` (Stage D built once per
 bucket: one CUDA graph on the card), and per-request rows come back to the
 host once and are scattered to their futures.
+
+A bucket's images are written in place, by one call, into the server's one
+staging buffer (``max_batch`` rows, made at the first dispatch), and its
+padding rows are zeroed.  On the card the buffer is pinned and one
+asynchronous copy moves the bucket's rows into a device input the server
+keeps for that bucket size; the host does not wait for it, and the next
+write into the buffer comes after ``.cpu()`` has waited for the device (or,
+where a bucket raised first, after a wait on the stream).  Off the card the
+program is called on the buffer's rows themselves.  What the host still does
+in series with the device: the wait for the replay in ``.cpu()``, the next
+bucket's lookup and staging (not overlapped with the replay), and the
+scatter.
 
 A request's output equals the bucket's ``BatchProgram`` on the same image
 batch bit for bit: padding rows are zeros and are sliced off.  The round
@@ -17,8 +28,9 @@ the card.
 
 With a tracer, a bucket's ``serve.dispatch`` span holds one child span per
 host phase (``PHASES``: lookup, stack, copy in, replay, copy out, scatter),
-one clock read apart, each request gets a ``serve.request`` span from its
-enqueue to its answer, and all of them carry the bucket's id.  On the card,
+one clock read apart (``serve.stack``'s ``pinned`` is 1 where the rows went
+into pinned memory, else 0), each request gets a ``serve.request`` span from
+its enqueue to its answer, and all of them carry the bucket's id.  On the card,
 three CUDA events a bucket time the device's copy in and replay
 (``dev.copy_in``, ``dev.replay``), read once the answers' copy back has
 returned and put on the tracer's clock by :class:`DeviceClock`'s anchor.
@@ -215,6 +227,12 @@ class SynthesisServer:
         self._thread: Optional[threading.Thread] = None
         self._stopping = threading.Event()
         self._dev = _UNSET          # the DeviceClock, made at the first traced dispatch
+        # A bucket's way in (_stage, _copy_in): one staging buffer, pinned on
+        # the card, made at the first dispatch; a device input per bucket size.
+        self._on_card = program.device.type == "cuda"
+        self._staging: Optional[torch.Tensor] = None
+        self._inputs: Dict[int, torch.Tensor] = {}
+        self._copy_pending = False  # a copy in that nothing has waited for yet
 
     # -- request side -------------------------------------------------------
     def submit(self, image) -> ServingFuture:
@@ -266,32 +284,25 @@ class SynthesisServer:
             compiled = self.cache.get_or_build(self.program, bucket.batch)
             if marks is not None:
                 marks.append(tr.clock())
-            x = np.stack([np.asarray(r.image, np.float32)
-                          for r in bucket.requests])
-            if bucket.padding:
-                x = np.concatenate(
-                    [x, np.zeros((bucket.padding, *x.shape[1:]), x.dtype)])
+            x = self._stage(bucket)
             if marks is not None:
                 marks.append(tr.clock())
-                stacked = {"rows": len(x), "bytes": x.nbytes}
+                stacked = {"rows": len(x), "bytes": x.nbytes,
+                           "pinned": int(self._on_card)}
                 if dev is not None:
                     dev.copy_in.record(dev.stream)
-            x = torch.from_numpy(x).to(device=self.program.device,
-                                       dtype=self.program.input_dtype)
+            x = self._copy_in(x)
             if marks is not None:
                 if dev is not None:
                     dev.cast.record(dev.stream)
                 marks.append(tr.clock())
             out = compiled(x)
-            # Drop the input before the answers wake their clients: dropped at
-            # the end, its release let them take the interpreter between two
-            # buckets (0.3 ms a bucket of AlexNet at 64 clients).
-            del x
             if marks is not None:
                 if dev is not None:
                     dev.replay.record(dev.stream)
                 marks.append(tr.clock())
             out = out.cpu()               # waits for the device
+            self._copy_pending = False    # and so for the copy in
             if out.dtype == torch.bfloat16:
                 # numpy has no bf16 (the reference's arrays use ml_dtypes'):
                 # widen, which is exact.
@@ -327,6 +338,47 @@ class SynthesisServer:
                 tr.record_spans(self._records(bucket, span, marks, stacked,
                                               timed, failed))
                 span_cm.__exit__(None, None, None)
+
+    def _stage(self, bucket: Bucket) -> torch.Tensor:
+        """``serve.stack``: the bucket's images written in place into rows
+        ``0..n-1`` of the server's staging buffer, zeros into its padding
+        rows (an earlier, larger bucket may have filled them); returns the
+        buffer's first ``batch`` rows.
+
+        The buffer holds ``max_batch`` float32 images, as clients send them,
+        and is pinned on the card.  Its rows are rewritten only once the last
+        copy in has read them: ``.cpu()`` in ``serve.copy_out`` waited for
+        it, or, where that bucket raised first, the stream is waited for
+        here."""
+        if self._copy_pending:
+            torch.cuda.current_stream(self.program.device).synchronize()
+            self._copy_pending = False
+        b, n = bucket.batch, len(bucket.requests)
+        if self._staging is None:
+            buf = torch.empty((self.config.max_batch, *self.program.net.input_shape),
+                              dtype=torch.float32)
+            self._staging = buf.pin_memory() if self._on_card else buf
+        rows = self._staging.numpy()
+        np.stack([np.asarray(r.image, np.float32) for r in bucket.requests], out=rows[:n])
+        rows[n:b] = 0
+        return self._staging[:b]
+
+    def _copy_in(self, rows: torch.Tensor) -> torch.Tensor:
+        """``serve.copy_in``: on the card, one asynchronous copy of the
+        staged rows into the device input the server keeps for that bucket
+        size (in the program's input dtype), which the host does not wait
+        for; off the card, the rows themselves."""
+        if not self._on_card:
+            return rows.to(self.program.input_dtype)
+        x = self._inputs.get(len(rows))
+        if x is None:
+            x = self._inputs[len(rows)] = rows.to(device=self.program.device,
+                                                  dtype=self.program.input_dtype,
+                                                  non_blocking=True)
+        else:
+            x.copy_(rows, non_blocking=True)
+        self._copy_pending = True
+        return x
 
     def _records(self, bucket: Bucket, parent, marks: List[float],
                  stacked: Optional[Dict[str, int]],

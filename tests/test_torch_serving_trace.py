@@ -6,8 +6,9 @@ which records nothing of it.
 No JAX here: the ``gpu`` case runs on the card with
 ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_serving_trace.py``.
 The CPU cases fake the card where they need one: a program that says it is
-on ``cuda``, ``Tensor.to`` that keeps the tensor on the CPU, and CUDA events
-stamped with the host's clock.
+on ``cuda``, ``Tensor.to`` that keeps the tensor on the CPU, a
+``Tensor.pin_memory`` that does nothing, and CUDA events stamped with the
+host's clock.
 """
 import statistics
 import sys
@@ -80,14 +81,15 @@ def _boom(*args, **kwargs):
 
 @pytest.fixture()
 def fake_card(monkeypatch):
-    """``cuda`` tensors stay on the CPU; events, streams and synchronize
-    are the host's."""
+    """``cuda`` tensors stay on the CPU and pinning is a no-op; events,
+    streams and synchronize are the host's."""
     to = torch.Tensor.to
 
     def to_cpu(self, *args, device=None, dtype=None, **kwargs):
         return to(self, dtype=dtype) if dtype is not None else self
 
     monkeypatch.setattr(torch.Tensor, "to", to_cpu)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", lambda self, *args, **kwargs: self)
     monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
@@ -135,7 +137,7 @@ def test_a_buckets_phases_nest_under_its_dispatch_share_its_id_and_cover_it(tiny
         assert d.attrs["bucket"] in waits
         assert all(p.attrs == {"bucket": d.attrs["bucket"]} for p in phases[:1] + phases[2:])
         assert phases[1].attrs == {"bucket": d.attrs["bucket"], "rows": d.attrs["batch"],
-                                   "bytes": d.attrs["batch"] * 3 * 67 * 67 * 4}
+                                   "bytes": d.attrs["batch"] * 3 * 67 * 67 * 4, "pinned": 0}
         assert d.t_start <= phases[0].t_start and phases[-1].t_end <= d.t_end
         assert all(a.t_end <= b.t_start for a, b in zip(phases, phases[1:]))
         coverage.append(sum(p.duration_s for p in phases) / d.duration_s)
