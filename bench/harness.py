@@ -8,6 +8,8 @@ Everything a cell is made of is found by name from ``BENCHMARK.json``:
                   pool of images and the limit of the check;
   reference       ``bench/reference/<network>.py``: the frozen copy of the
                   network, run by ``bench/reference/ops.py``;
+  layer kinds     ``bench/reference/kinds/<kind>.py`` for each kind of the
+                  network that ``ops.py`` does not build in (``Cell.kinds``);
   traffic         ``bench/traffic/<traffic>.json``, read by ``generator.py``;
   metrics         ``bench/metrics/<metric>.py``, one reader each, for the
                   end-to-end metrics that apply to the cell (trace 0) or
@@ -37,7 +39,7 @@ import torch
 from bench import inputs
 from bench.generator import ANSWERED, SHED, Generator, Log, Traffic
 from bench.profiling import DeviceWindow, Profiler
-from bench.reference.ops import forward
+from bench.reference.ops import Kinds, forward, param_shapes
 
 ROOT = Path(__file__).resolve().parents[1]
 #: How long after the window's close an answer may still come.
@@ -91,6 +93,10 @@ class Cell:
         net = self.config["network"]
         return _load_module(self.root / "bench" / "reference" / f"{net}.py",
                             f"bench.reference.{net}")
+
+    def kinds(self) -> Kinds:
+        """The layer kinds of this cell's checkout."""
+        return Kinds(self.root)
 
     def reader(self, metric: str):
         return _load_module(self.root / "bench" / "metrics" / f"{metric}.py",
@@ -165,6 +171,7 @@ class Run:
     routing: Dict[str, str] = field(default_factory=dict)   # layer -> impl
     layers: list = field(default_factory=list)
     input_shape: Tuple[int, ...] = ()
+    kinds: Optional[Kinds] = None       # the layers' kinds (Cell.kinds)
     gc_pauses: List[float] = field(default_factory=list)    # full collections, s
     host: Dict[str, float] = field(default_factory=dict)    # host_delta over the window
 
@@ -210,8 +217,9 @@ class Session:
         hw, classes, scale = cfg["input_hw"], cfg["num_classes"], cfg.get("scale", 1.0)
         self.input_shape = (3, hw, hw)
         self.layers = cell.reference().layers(scale=scale, num_classes=classes)
+        self.kinds = cell.kinds()
         gen = inputs.generator(seed, device)
-        params = inputs.draw_weights(gen, self.layers, self.input_shape, device)
+        params = inputs.draw_weights(gen, self.layers, self.input_shape, device, self.kinds)
         pool = inputs.draw_images(gen, cfg["pool_images"], self.input_shape, device)
         calib = inputs.draw_images(gen, CALIBRATION_IMAGES, self.input_shape, device)
         self.images = pool.cpu().numpy()
@@ -226,8 +234,8 @@ class Session:
             forced_mode=self.mode, tracer=self.tracer,
             autotune_input=calib if self.mode is ComputeMode.IMPRECISE_INT8 else None)
         del params, calib
-        self.routing = {l["name"]: self.program.plan.for_layer(l["name"]).impl
-                        for l in self.layers if l["kind"] in ("conv", "dense")}
+        self.routing = {n: self.program.plan.for_layer(n).impl
+                        for n, *_ in param_shapes(self.layers, self.input_shape, self.kinds)}
         self.tier = ReplicaSet(self.program, config=ServingConfig(**cfg["serving"]),
                                tracer=self.tracer)
         self.stage_d_s = sum(warm_replicas(self.tier))
@@ -279,7 +287,7 @@ class Session:
                    stage_d_s=self.stage_d_s,
                    spans=self.tracer.finished() if self.tracer is not None else [],
                    device=device, routing=dict(self.routing), layers=self.layers,
-                   input_shape=self.input_shape, gc_pauses=pauses,
+                   input_shape=self.input_shape, kinds=self.kinds, gc_pauses=pauses,
                    host=host_delta(host0, host1))
 
     def profiled_phase(self, submit, traffic: dict, order, seed: int) -> Optional[DeviceWindow]:
@@ -328,9 +336,11 @@ def reference_logprobs(cell: Cell, seed: int, images: np.ndarray, device: str,
     layers = cell.reference().layers(scale=cfg.get("scale", 1.0),
                                       num_classes=cfg["num_classes"])
     shape = (3, cfg["input_hw"], cfg["input_hw"])
-    params = inputs.draw_weights(inputs.generator(seed, device), layers, shape, device)
+    kinds = cell.kinds()
+    params = inputs.draw_weights(inputs.generator(seed, device), layers, shape, device, kinds)
     precision = precision or cfg["check"]["reference_precision"]
-    out = [forward(layers, params, torch.from_numpy(images[i:i + block]).to(device), precision)
+    out = [forward(layers, params, torch.from_numpy(images[i:i + block]).to(device), precision,
+                   kinds)
            for i in range(0, len(images), block)]
     return torch.cat(out)
 

@@ -5,5 +5,5 @@ from bench.roofline import BF16_FLOPS, flops_per_image
 
 
 def read(run):
-    flops = run.completed_in_window * flops_per_image(run.layers, run.input_shape)
+    flops = run.completed_in_window * flops_per_image(run.layers, run.input_shape, run.kinds)
     return 100.0 * flops / (run.seconds * BF16_FLOPS) if flops else None

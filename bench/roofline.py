@@ -11,62 +11,55 @@ dense, at its 700 W limit): they are stated beside the card's power limit.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
-from bench.reference.ops import shapes
+from bench.reference.ops import Kinds, param_shapes, shapes
 
 BF16_FLOPS = 989e12          # dense bf16 tensor-core peak, FLOP/s
 HBM_BYTES_PER_S = 3.35e12    # HBM3
 BF16_BYTES = 2
 
 
-def layer_work(layers: Sequence[dict], input_shape: Tuple[int, ...]
-               ) -> Dict[str, Tuple[float, float]]:
-    """(FLOPs, bytes) of one image through each conv and dense layer; the
-    bytes of the weights and bias are per call, so they are counted apart by
-    :func:`bound_seconds`."""
-    sh = shapes(layers, input_shape)
+def layer_work(layers: Sequence[dict], input_shape: Tuple[int, ...],
+               kinds: Optional[Kinds] = None) -> Dict[str, Tuple[float, float]]:
+    """(FLOPs, activation elements) of one image through each layer whose
+    kind counts its work (conv and dense among the built-in kinds); the
+    weights and bias are per call, so :func:`bound_seconds` counts them
+    apart."""
+    kinds = Kinds() if kinds is None else kinds
+    sh = shapes(layers, input_shape, kinds)
     work = {}
     for l in layers:
-        x, y = sh[l["inputs"][0]], sh[l["name"]]
-        if l["kind"] == "conv":
-            macs = math.prod(y) * x[0] * l["k"] ** 2
-            work[l["name"]] = (2.0 * macs, float(math.prod(x) + math.prod(y)))
-        elif l["kind"] == "dense":
-            macs = math.prod(x) * y[0]
-            work[l["name"]] = (2.0 * macs, float(math.prod(x) + y[0]))
+        w = kinds[l["kind"]].work(l, [sh[i] for i in l["inputs"]], sh[l["name"]])
+        if w is not None:
+            work[l["name"]] = (float(w[0]), float(w[1]))
     return work
 
 
-def weight_elems(layers: Sequence[dict], input_shape: Tuple[int, ...]
-                 ) -> Dict[str, Tuple[int, int]]:
-    """(weight elements, bias elements) of each conv and dense layer."""
-    sh = shapes(layers, input_shape)
-    out = {}
-    for l in layers:
-        cin = sh[l["inputs"][0]]
-        if l["kind"] == "conv":
-            out[l["name"]] = (l["out"] * cin[0] * l["k"] ** 2, l["out"])
-        elif l["kind"] == "dense":
-            out[l["name"]] = (math.prod(cin) * l["out"], l["out"])
-    return out
+def weight_elems(layers: Sequence[dict], input_shape: Tuple[int, ...],
+                 kinds: Optional[Kinds] = None) -> Dict[str, Tuple[int, int]]:
+    """(weight elements, bias elements) of each layer that has parameters."""
+    return {name: (math.prod(shape), n_bias)
+            for name, shape, _, n_bias in param_shapes(layers, input_shape, kinds)}
 
 
-def flops_per_image(layers: Sequence[dict], input_shape: Tuple[int, ...]) -> float:
-    """2 x the multiply-adds of every conv and dense layer for one image."""
-    return sum(f for f, _ in layer_work(layers, input_shape).values())
+def flops_per_image(layers: Sequence[dict], input_shape: Tuple[int, ...],
+                    kinds: Optional[Kinds] = None) -> float:
+    """The FLOPs of every layer whose kind counts them (2 x the multiply-adds
+    of every conv and dense layer) for one image."""
+    return sum(f for f, _ in layer_work(layers, input_shape, kinds).values())
 
 
 def bound_seconds(layers: Sequence[dict], input_shape: Tuple[int, ...],
                   names: Iterable[str], batch: int,
-                  operand_bytes: int = BF16_BYTES) -> float:
+                  operand_bytes: int = BF16_BYTES, kinds: Optional[Kinds] = None) -> float:
     """Sum over ``names`` of each layer's bound at ``batch`` images."""
-    work = layer_work(layers, input_shape)
-    wts = weight_elems(layers, input_shape)
+    work = layer_work(layers, input_shape, kinds)
+    wts = weight_elems(layers, input_shape, kinds)
     total = 0.0
     for n in names:
         flops, act = work[n]
-        w, b = wts[n]
+        w, b = wts.get(n, (0, 0))
         nbytes = operand_bytes * (batch * act + w) + 4 * b
         total += max(batch * flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S)
     return total
@@ -89,8 +82,8 @@ def kernel_roofline_pct(run, kind: str, pattern: str, launches_per_layer: int):
     import bisect
 
     d = run.device
-    kinds = {l["name"]: l["kind"] for l in run.layers}
-    names = [n for n, impl in run.routing.items() if impl == KERNEL_IMPL and kinds[n] == kind]
+    kind_of = {l["name"]: l["kind"] for l in run.layers}
+    names = [n for n, impl in run.routing.items() if impl == KERNEL_IMPL and kind_of[n] == kind]
     if d is None or not names:
         return None
     ops = d.ops_of(pattern)
@@ -109,6 +102,7 @@ def kernel_roofline_pct(run, kind: str, pattern: str, launches_per_layer: int):
             continue
         batch = spans[i][2]
         if batch not in bounds:
-            bounds[batch] = bound_seconds(run.layers, run.input_shape, names, batch)
+            bounds[batch] = bound_seconds(run.layers, run.input_shape, names, batch,
+                                          kinds=run.kinds)
         work += bounds[batch] / per_replay
     return 100.0 * work / seconds

@@ -29,7 +29,7 @@ def test_no_source_of_the_benchmark_imports_jax_or_the_jax_package():
     assert len(sources) > 20
     for p in sources:
         assert not set(_imports(p)) & FORBIDDEN, p
-    for p in (BENCH / "reference").glob("*.py"):
+    for p in (BENCH / "reference").rglob("*.py"):
         assert "repro_torch" not in set(_imports(p)), p
 
 
@@ -60,13 +60,22 @@ def test_a_whole_run_loads_neither_jax_nor_the_jax_package():
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    code = ("import torch\n"
+    code = ("import tempfile, torch\n"
+            "from pathlib import Path\n"
             "from bench.reference import alexnet, googlenet, ops\n"
-            "from bench import inputs\n"
+            "from bench import inputs, roofline\n"
             "for m, hw in ((alexnet, 67), (googlenet, 64)):\n"
             "    L = m.layers(scale=0.1, num_classes=10)\n"
             "    p = inputs.draw_weights(inputs.generator(1, 'cpu'), L, (3, hw, hw), 'cpu')\n"
-            "    ops.forward(L, p, torch.zeros(1, 3, hw, hw))\n")
+            "    ops.forward(L, p, torch.zeros(1, 3, hw, hw))\n"
+            # Kind files, loaded from a checkout of their own.
+            "from bench.tests.test_bench_kinds import ADD, DWCONV, SHAPE, checkout, network\n"
+            "with tempfile.TemporaryDirectory() as d:\n"
+            "    k = ops.Kinds(checkout(Path(d), add=ADD, dwconv=DWCONV))\n"
+            "    L = network()\n"
+            "    p = inputs.draw_weights(inputs.generator(1, 'cpu'), L, SHAPE, 'cpu', k)\n"
+            "    ops.forward(L, p, torch.zeros(1, *SHAPE), kinds=k)\n"
+            "    assert roofline.flops_per_image(L, SHAPE, k) > 0\n")
     mods = _modules_after(code)
     assert not mods & (FORBIDDEN | {"repro_torch"})
 

@@ -87,7 +87,7 @@ def test_kernel_roofline_pct_credits_each_launch_with_its_replays_bound():
     ops.append(("void conv_mapmajor_int8_kernel<1>(Args)", 1.0, 1.1))
     run = SimpleNamespace(
         device=DeviceWindow(0.0, 4.0, ops), layers=a, input_shape=(3, 227, 227),
-        routing=routing,
+        routing=routing, kinds=None,
         spans=[_span("serve.dispatch", 0.99, 1.01, batch=8),
                _span("serve.dispatch", 1.99, 2.01, batch=8)])
     pct = roofline.kernel_roofline_pct(run, "conv", r"\bconv_mapmajor_kernel\b", 1)
