@@ -40,8 +40,16 @@ def infer_shapes(net: NetworkDescription) -> Dict[str, Tuple[int, ...]]:
             shapes[l.name] = (l.out_channels,
                               _pool_out(h, l.kernel, l.stride, l.padding),
                               _pool_out(w, l.kernel, l.stride, l.padding))
-        elif l.kind in ("relu", "lrn", "softmax"):
+        elif l.kind in ("relu", "lrn", "softmax", "bn"):
             shapes[l.name] = s
+        elif l.kind == "add":
+            if len(ins) != 2 or ins[0] != ins[1]:
+                raise ValueError(f"{net.name}: add {l.name} needs two inputs of "
+                                 f"one shape, got {ins}")
+            shapes[l.name] = s
+        elif l.kind == "pad":
+            c, h, w = s
+            shapes[l.name] = (c, h + sum(l.pads), w + sum(l.pads))
         elif l.kind in ("maxpool", "avgpool"):
             c, h, w = s
             shapes[l.name] = (c, _pool_out(h, l.pool_size, l.stride, l.padding),
@@ -68,7 +76,8 @@ def init_network_params(net: NetworkDescription,
                         device: "str | torch.device | None" = "cuda",
                         dtype: torch.dtype = torch.float32) -> Params:
     """He-normal weights (OIHW conv, (K, N) dense) and zero biases, drawn on
-    the CPU from ``generator`` (or a seed) and placed on ``device``."""
+    the CPU from ``generator`` (or a seed) and placed on ``device``; a
+    ``bn`` gets the identity (scale 1, shift 0), as a fresh one is."""
     dev = torch_device(device)
     if isinstance(generator, int):
         generator = torch.Generator().manual_seed(generator)
@@ -89,6 +98,11 @@ def init_network_params(net: NetworkDescription,
         if l.use_bias:
             p["b"] = torch.zeros((l.out_channels,), dtype=dtype, device=dev)
         params[l.name] = p
+    for l in net.layers:
+        if l.kind == "bn":
+            c = shapes[l.name][0]
+            params[l.name] = {"w": torch.ones((c,), dtype=dtype, device=dev),
+                              "b": torch.zeros((c,), dtype=dtype, device=dev)}
     return params
 
 

@@ -8,7 +8,8 @@ The counterpart of ``repro.core.graph``.  A pipeline of pure passes lowers a
   2. ``eliminate_dead_layers``   drop layers that cannot reach the output
   3. ``fuse_conv_epilogues``     conv/dense + bias + ReLU -> one group
   4. ``fuse_pointwise_chains``   runs of shape-preserving single-input
-                                 layers (relu / lrn / softmax) -> one group
+                                 layers (relu / lrn / softmax) -> one group,
+                                 also behind a residual ``add``
 
 Each pass records its decisions in the program's ``trace``; the traces, the
 group structure and the fusion digests equal the JAX package's
@@ -37,6 +38,11 @@ if TYPE_CHECKING:  # pragma: no cover - typing only
 #: reads a cross-channel window but writes elementwise — it fuses at the
 #: dispatch level even though no kernel folds it into a MAC epilogue.
 FUSIBLE_POINTWISE = frozenset({"relu", "lrn", "softmax"})
+
+#: Anchors of a pointwise chain besides :data:`FUSIBLE_POINTWISE`: a
+#: residual ``add`` takes the chain that follows it (ResNet's ReLU) into its
+#: own dispatch.
+POINTWISE_ANCHORS = FUSIBLE_POINTWISE | {"add"}
 
 #: Epilogue kinds a conv/dense *kernel* can fold into its MAC loop
 #: (applied to the accumulator before the output write).  Deliberately
@@ -78,8 +84,8 @@ class FusedGroup:
     def kernel_fusible_epilogue(self) -> bool:
         """True iff every epilogue member can fold into the anchor's MAC
         loop (the in-kernel bias+ReLU path)."""
-        return bool(self.epilogue) and all(
-            l.kind in KERNEL_EPILOGUE_KINDS for l in self.epilogue)
+        return (bool(self.epilogue) and self.anchor.kind in ("conv", "dense")
+                and all(l.kind in KERNEL_EPILOGUE_KINDS for l in self.epilogue))
 
     def signature(self) -> Tuple[Tuple[str, str], ...]:
         """(name, kind) per member — the group's identity for fingerprints."""
@@ -288,11 +294,13 @@ def fuse_pointwise_chains(gp: GraphProgram) -> GraphProgram:
 
     Catches what epilogue fusion leaves behind (an LRN after a pooled conv,
     a ReLU whose producer has other consumers followed by an LRN, a
-    trailing softmax chain): the chain still executes op by op inside the
-    group, but costs one dispatch instead of one per layer.
+    trailing softmax chain, the ReLU after a residual ``add``): the chain
+    still executes op by op inside the group, but costs one dispatch
+    instead of one per layer.
     """
     def can_fuse(producer: FusedGroup, consumer: FusedGroup) -> bool:
-        return (all(l.kind in FUSIBLE_POINTWISE for l in producer.layers)
+        return (producer.anchor.kind in POINTWISE_ANCHORS
+                and all(l.kind in FUSIBLE_POINTWISE for l in producer.epilogue)
                 and all(l.kind in FUSIBLE_POINTWISE for l in consumer.layers))
     return _fuse_adjacent(gp, "fuse-pointwise-chain", can_fuse)
 

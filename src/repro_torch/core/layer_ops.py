@@ -14,7 +14,11 @@ The counterpart of ``repro.core.layer_ops``:
 :func:`apply_group` is the graph executor's one entry point per fused group.
 Structural ops keep the JAX package's semantics: pools pad with ``-inf``
 (max) or count only in-bounds elements (average) under XLA's asymmetric
-SAME split; ``lrn`` and ``softmax`` compute in f32.
+SAME split; ``lrn`` and ``softmax`` compute in f32.  The JAX package has no
+``add``, ``bn`` or ``pad`` (ResNet's kinds): ``add`` sums its two inputs in
+their type (a bf16 sum rounds once), ``bn`` computes ``x * w[c] + b[c]`` in
+f32 and rounds to the input's type (the synthesizer folds every ``bn`` that
+follows a conv into it, so only a stray one runs here), ``pad`` adds zeros.
 """
 from __future__ import annotations
 
@@ -264,3 +268,21 @@ def _concat(layer, plan, params, ins):
 @register_layer_op("softmax")
 def _softmax(layer, plan, params, ins):
     return torch.softmax(ins[0].float(), dim=-1)
+
+
+@register_layer_op("add")
+def _add(layer, plan, params, ins):
+    return ins[0] + ins[1].to(ins[0].dtype)
+
+
+@register_layer_op("bn")
+def _bn(layer, plan, params, ins):
+    x = ins[0]
+    w, b = (params[k].float()[None, :, None, None] for k in ("w", "b"))
+    return (x.float() * w + b).to(x.dtype)
+
+
+@register_layer_op("pad")
+def _pad(layer, plan, params, ins):
+    lo, hi = layer.pads
+    return F.pad(ins[0], (lo, hi, lo, hi))

@@ -18,7 +18,8 @@ from .precision import ComputeMode
 class Layer:
     name: str
     kind: str                      # conv, relu, maxpool, avgpool, gap, lrn,
-                                   # dense, flatten, concat, softmax
+                                   # dense, flatten, concat, softmax, add,
+                                   # bn, pad
     inputs: Tuple[str, ...] = ()
     out_channels: int = 0
     kernel: int = 0
@@ -32,7 +33,16 @@ class Layer:
 
     @property
     def has_params(self) -> bool:
+        """Whether the layer multiplies by weights (conv, dense).  A ``bn``
+        carries a per-channel scale and shift instead (``w``, ``b``)."""
         return self.kind in ("conv", "dense")
+
+    @property
+    def pads(self) -> Tuple[int, int]:
+        """A ``pad`` layer's zeros before and after each spatial dimension:
+        TF's ``fixed_padding`` for a following ``kernel`` x ``kernel`` conv."""
+        total = self.kernel - 1
+        return total // 2, total - total // 2
 
     @property
     def is_inexactable(self) -> bool:
@@ -94,6 +104,20 @@ class NetworkDescription:
 
     def softmax(self, name, inputs=None):
         return self.add(Layer(name, "softmax", tuple(inputs or (self._tail(),))))
+
+    def residual(self, name, inputs):
+        """``add``: the elementwise sum of two activations of one shape."""
+        return self.add(Layer(name, "add", tuple(inputs)))
+
+    def bn(self, name, inputs=None):
+        """Inference batch norm as ``x * w[c] + b[c]`` (scale and shift)."""
+        return self.add(Layer(name, "bn", tuple(inputs or (self._tail(),))))
+
+    def pad(self, name, kernel, inputs=None):
+        """Zero padding for a following ``kernel`` x ``kernel`` VALID conv
+        (:attr:`Layer.pads`)."""
+        return self.add(Layer(name, "pad", tuple(inputs or (self._tail(),)),
+                              kernel=kernel))
 
     @property
     def param_layers(self) -> List[Layer]:

@@ -106,8 +106,14 @@ def trace_shapes(net: NetworkDescription) -> Dict[str, Tuple[int, ...]]:
             shapes[l.name] = (l.out_channels,)
         elif l.kind == "concat":
             shapes[l.name] = (sum(i[0] for i in ins),) + tuple(s[1:])
-        else:                    # relu, lrn, softmax: shape-preserving
+        elif l.kind == "pad":
+            c, h, w = s
+            shapes[l.name] = (c, h + sum(l.pads), w + sum(l.pads))
+        elif l.kind in ("relu", "lrn", "softmax", "bn", "add"):
             shapes[l.name] = tuple(s)
+        else:
+            raise ValueError(f"{net.name}: no shape rule for layer kind "
+                             f"{l.kind!r} ({l.name})")
     return shapes
 
 

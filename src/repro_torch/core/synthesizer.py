@@ -4,6 +4,8 @@ The counterpart of ``repro.core.synthesizer``.  Inputs: a
 :class:`NetworkDescription`, its params (a dict of tensors on the device the
 program runs on) and, optionally, a validation set (images, labels).
 
+  0. fold every inference batch norm (``bn``) that follows a conv into
+     that conv's weights and bias, in f32 (:func:`fold_batch_norms`);
   A. plan: lower to fused groups, then the static planner;
   B. prepare the weights for each layer's compute mode;
   C. with a validation set, the fixed-point loop (plan -> mode probe ->
@@ -314,8 +316,9 @@ def _replan(net: NetworkDescription, base: ExecutionPlan,
 def _prepare_params(net: NetworkDescription, params,
                     modes: Dict[str, ComputeMode]):
     """Stage B: weights cast to each layer's operand type (quantized per
-    output channel under IMPRECISE_INT8), biases to f32.  The map-major
-    reorder happens in the kernel wrappers."""
+    output channel under IMPRECISE_INT8), biases to f32; a ``bn`` left
+    unfolded keeps its scale and shift in f32.  The map-major reorder
+    happens in the kernel wrappers."""
     prepared = {}
     for l in net.param_layers:
         p = dict(params[l.name])
@@ -324,7 +327,50 @@ def _prepare_params(net: NetworkDescription, params,
         if "b" in p:
             p["b"] = p["b"].float()
         prepared[l.name] = p
+    for l in net.layers:
+        if l.kind == "bn":
+            prepared[l.name] = {k: params[l.name][k].float() for k in ("w", "b")}
     return prepared
+
+
+def fold_batch_norms(net: NetworkDescription, params
+                     ) -> Tuple[NetworkDescription, Dict[str, Dict[str, torch.Tensor]], int]:
+    """Fold each ``bn`` into the conv that feeds it alone.
+
+    ``bn`` computes ``y * w[o] + b[o]`` on the conv's ``y = conv(x, W) + c``,
+    so the conv with ``W' = W * w[o]`` and ``c' = c * w + b`` (in f32) gives
+    the same output; the ``bn``'s consumers are rewired to the conv.  A
+    ``bn`` stays a layer where its producer is not a conv or feeds other
+    layers too, and where it ends the network.  Returns the folded
+    network, its params (the input's, with the folded convs' replaced) and
+    the number of ``bn`` layers folded."""
+    consumers: Dict[str, int] = {}
+    for l in net.layers:
+        for i in l.inputs:
+            consumers[i] = consumers.get(i, 0) + 1
+    by_name = {l.name: l for l in net.layers}
+    out = dict(params)
+    into: Dict[str, str] = {}                 # bn -> the conv it folds into
+    for l in net.layers:
+        src = by_name.get(l.inputs[0]) if l.kind == "bn" else None
+        if (src is None or src.kind != "conv" or consumers[src.name] != 1
+                or l is net.layers[-1]):
+            continue
+        conv, bn = params[src.name], params[l.name]
+        scale, shift = bn["w"].float(), bn["b"].float()
+        bias = conv["b"].float() if src.use_bias and "b" in conv \
+            else torch.zeros_like(shift)
+        out[src.name] = {"w": conv["w"].float() * scale[:, None, None, None],
+                         "b": bias * scale + shift}
+        del out[l.name]
+        into[l.name] = src.name
+    if not into:
+        return net, params, 0
+    convs = set(into.values())
+    layers = [dataclasses.replace(l, inputs=tuple(into.get(i, i) for i in l.inputs),
+                                  use_bias=l.use_bias or l.name in convs)
+              for l in net.layers if l.name not in into]
+    return NetworkDescription(net.name, net.input_shape, layers), out, len(into)
 
 
 def _autotune(net: NetworkDescription, params, x,
@@ -471,11 +517,25 @@ def synthesize(net: NetworkDescription,
             _t.event("synthesis.artifact_put_failed", net=net.name,
                      error=str(e))
 
+    # Stage 0: batch norms folded into their convs (with ``plan=`` the
+    # network runs as given, since the plan names its layers).
+    n_bn = sum(l.kind == "bn" for l in net.layers)
+    if plan is None and n_bn:
+        with _t.span("synthesis.fold_bn", net=net.name, bn=n_bn) as span:
+            net, params, folded = fold_batch_norms(net, params)
+            if span is not None:
+                span.attrs["folded"] = folded
+
     # Stage A.
     if plan is None:
-        with _t.span("synthesis.stage_a_plan", net=net.name, fuse=fuse):
+        with _t.span("synthesis.stage_a_plan", net=net.name, fuse=fuse) as span:
             graph = lower_network(net) if fuse else None
             plan = plan_network(net, config=planner_config, graph=graph)
+            residual = sum(l.kind == "add" for l in net.layers)
+            if span is not None and residual:
+                span.attrs.update(residual=residual, residual_fused=sum(
+                    g.anchor.kind == "add" and g.fused
+                    for g in (graph.groups if graph is not None else ())))
     tune_x = None
     if autotune:
         tune_x = autotune_input if autotune_input is not None else \
