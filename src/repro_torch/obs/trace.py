@@ -24,7 +24,10 @@ dispatch phases and answer can be read from the JSONL.
 Spans nest per thread: a span opened inside another (on the same thread)
 records the outer span as its parent, and closing is LIFO — the span
 taxonomy is a forest whose invariants ("every span closes", "parents
-outlive children") are pinned by tests/test_obs.py.  Completed spans are
+outlive children") are pinned by tests/test_obs.py.  A span held open
+by :meth:`Tracer.held` leaves the stack at its block's end and is recorded
+later: the tier's ``serve.dispatch``, whose bucket stays in flight while
+its thread launches the next one.  Completed spans are
 appended to one shared list under a lock (:meth:`Tracer.record_spans`
 appends many under one acquisition); span and correlation ids are drawn
 from ``itertools.count`` without it.  The per-thread *open* stack is
@@ -46,7 +49,7 @@ import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 #: Attribute values are kept JSON-scalar so export never fails mid-run.
 _SCALARS = (str, int, float, bool, type(None))
@@ -147,6 +150,29 @@ class Tracer:
             stack.pop()
             self._finish(s, self.clock())
 
+    @contextmanager
+    def held(self, name: str, **attrs):
+        """Open a span around the with-block, as :meth:`span` does, but
+        leave it unrecorded at the block's end: spans opened in the block
+        nest under it, and the caller records it later, its ``t_end`` set,
+        among :meth:`record_spans`' records.  For a region that outlives
+        its block while the thread starts another, such as a bucket in
+        flight while the next one is launched.  Yields None when disabled.
+        """
+        if not self.enabled:
+            yield None
+            return
+        s = self._new_span(name, self.clock(), attrs)
+        stack = self._stack()
+        stack.append(s)
+        try:
+            yield s
+        except BaseException:
+            s.attrs["error"] = True
+            raise
+        finally:
+            stack.pop()
+
     def event(self, name: str, **attrs) -> Optional[Span]:
         """A zero-duration span at "now" (shed/steal/demotion markers)."""
         if not self.enabled:
@@ -168,19 +194,24 @@ class Tracer:
         self._finish(s, t_end)
         return s
 
-    def record_spans(self, records: Iterable[
-            Tuple[str, float, float, Optional[Span], Dict[str, object]]]) -> None:
+    def record_spans(self, records: Iterable[Union[
+            Span, Tuple[str, float, float, Optional[Span], Dict[str, object]]]]) -> None:
         """Record many retroactive spans, each ``(name, t_start, t_end,
         parent, attrs)`` with ``parent`` an open or finished :class:`Span`
-        or None (a root), under one acquisition of the lock: a served
-        bucket's phases, requests and device spans at once."""
+        or None (a root), or a span of :meth:`held` with its ``t_end`` set,
+        under one acquisition of the lock: a served bucket's dispatch,
+        phases, requests and device spans at once."""
         if not self.enabled:
             return
         thread = threading.current_thread().name
-        spans = [Span(name=name, span_id=next(self._span_ids),
-                      parent_id=parent.span_id if parent is not None else None,
-                      t_start=t0, t_end=t1, thread=thread, attrs=attrs)
-                 for name, t0, t1, parent, attrs in records]
+        spans = []
+        for r in records:
+            if not isinstance(r, Span):
+                name, t0, t1, parent, attrs = r
+                r = Span(name=name, span_id=next(self._span_ids),
+                         parent_id=parent.span_id if parent is not None else None,
+                         t_start=t0, t_end=t1, thread=thread, attrs=attrs)
+            spans.append(r)
         with self._lock:
             self._spans.extend(spans)
 

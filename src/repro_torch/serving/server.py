@@ -9,35 +9,51 @@ buckets, each bucket is dispatched through a
 bucket: one CUDA graph on the card), and per-request rows come back to the
 host once and are scattered to their futures.
 
-A bucket's images are written in place, by one call, into the server's one
-staging buffer (``max_batch`` rows, made at the first dispatch), and its
-padding rows are zeroed.  On the card the buffer is pinned and one
-asynchronous copy moves the bucket's rows into a device input the server
-keeps for that bucket size; the host does not wait for it, and the next
-write into the buffer comes after ``.cpu()`` has waited for the device (or,
-where a bucket raised first, after a wait on the stream).  Off the card the
-program is called on the buffer's rows themselves.  What the host still does
-in series with the device: the wait for the replay in ``.cpu()``, the next
-bucket's lookup and staging (not overlapped with the replay), and the
-scatter.
+A dispatch is two halves.  :meth:`SynthesisServer.launch` looks the
+program up, writes the bucket's images in place, by one call, into one of
+the server's two staging buffers (``max_batch`` rows each, made at first
+use, used in turn) with its padding rows zeroed, and calls the program; on
+the card the buffer is pinned, one asynchronous copy moves the rows into a
+device input kept per bucket size, and after the replay one asynchronous
+copy moves the answers into the same slot's pinned answer buffer, followed
+by the slot's CUDA event.  :meth:`SynthesisServer.finish` waits on that
+event alone (never the stream), widens the answers into a fresh array and
+scatters them.  ``dispatch_bucket`` is ``finish(launch(bucket))``: ``pump``,
+``drain`` and every caller outside a serving loop stay serial.  A serving
+loop on the card (:meth:`SynthesisServer.pipelined`) keeps one bucket in
+flight: it launches bucket k+1 before it finishes bucket k, unless bucket
+k's event has already completed, and with nothing released it finishes the
+one in flight before it waits.  So the host's lookup, staging and scatter
+run while the device replays, no answer that has landed waits behind a
+launch, and the host writes a slot only after the event of the bucket that
+last read it has been waited for (at depth two, always; where a launch
+raised after its copy in, the next write into that slot waits on the slot's
+event first).
+Off the card the program runs on the buffer's rows as the call is made, so
+nothing is left in flight there.
 
 A request's output equals the bucket's ``BatchProgram`` on the same image
 batch bit for bit: padding rows are zeros and are sliced off.  The round
 trip in tests/test_torch_serving.py pins this on the CPU, chip_smoke.py on
 the card.
 
-With a tracer, a bucket's ``serve.dispatch`` span holds one child span per
-host phase (``PHASES``: lookup, stack, copy in, replay, copy out, scatter),
-one clock read apart (``serve.stack``'s ``pinned`` is 1 where the rows went
-into pinned memory, else 0), each request gets a ``serve.request`` span from
-its enqueue to its answer, and all of them carry the bucket's id.  On the card,
-three CUDA events a bucket time the device's copy in and replay
-(``dev.copy_in``, ``dev.replay``), read once the answers' copy back has
-returned and put on the tracer's clock by :class:`DeviceClock`'s anchor.
-The bucket's spans are recorded at its end under one acquisition of the
-tracer's lock, so ``serve.dispatch``'s self time is chiefly that record.
-Without a tracer none of this runs: no clock read, event, allocation or lock
-beyond the untraced path's.
+With a tracer, a bucket's ``serve.dispatch`` span (held open over the
+launch by :meth:`~repro_torch.obs.Tracer.held`, recorded after the scatter)
+runs from its lookup to its scatter and holds one child span per host phase
+(``PHASES``: lookup, stack, copy in, replay in the launch; copy out, scatter
+in the finish), one clock read apart within each half (``serve.stack``'s
+``pinned`` is 1 where the rows went into pinned memory, else 0); on a
+pipelined loop the next bucket's launch phases lie between its replay and
+its copy out, and its ``overlapped`` is 1 where it was launched while
+another bucket of the server was in flight, else 0.  Each request gets a
+``serve.request`` span from its enqueue to its answer, and all of them
+carry the bucket's id.  On the card, three CUDA events of the bucket's slot
+time the device's copy in and replay (``dev.copy_in``, ``dev.replay``),
+read once the slot's event has been waited for and put on the tracer's
+clock by :class:`DeviceClock`'s anchor.  The bucket's spans are recorded at
+its end under one acquisition of the tracer's lock.  Without a tracer none
+of this runs: no clock read, timed event, span or lock beyond the untraced
+path's.
 
 Two dispatch modes share all logic:
 
@@ -50,6 +66,7 @@ from __future__ import annotations
 
 import threading
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -57,7 +74,7 @@ import numpy as np
 import torch
 
 from ..core.synthesizer import SynthesizedProgram
-from ..obs import MetricsRegistry, Tracer
+from ..obs import MetricsRegistry, Span, Tracer
 from .batcher import Bucket, DynamicBatcher, ServingFuture
 from .config import ServingConfig
 from .program_cache import ProgramCache
@@ -69,6 +86,9 @@ ANCHOR_SAMPLES = 3
 #: The host phases of a dispatch, in order: ``serve.dispatch``'s children.
 PHASES = ("serve.lookup", "serve.stack", "serve.copy_in", "serve.replay",
           "serve.copy_out", "serve.scatter")
+#: Buckets a server can hold at once: the one the device runs and the one
+#: the host launches behind it, each with its own buffers and events.
+SLOTS = 2
 _UNSET = object()
 
 
@@ -83,12 +103,14 @@ class DeviceClock:
     narrowest bracket is kept, and its width is the ``serve.clock_anchor``
     span's ``error_us``.  Read before the record, as a span's start is read
     before the events recorded in it, the anchor puts device times early by
-    at most that bracket.  A new anchor is taken at the start of a dispatch
+    at most that bracket.  A new anchor is taken at the start of a launch
     at most once every ``ANCHOR_PERIOD_S``; its span also says where the
     previous anchor (``drift_us``) and the first one (``drift_first_us``,
     ``since_first_s`` later) put its stamp: the two clocks' drift.  Every
-    event is made once and recorded again; a server's dispatches are serial,
-    so one set serves them all.
+    event is made once and recorded again: one set of three per slot of the
+    server, each read against the anchor of its own launch (an anchor
+    replaced since stays unrecorded until the next anchor, which comes
+    after that slot's finish).
     """
 
     def __init__(self, device: torch.device, clock):
@@ -96,8 +118,11 @@ class DeviceClock:
             return torch.cuda.Event(enable_timing=True)
 
         self.device, self.clock = device, clock
-        self.stream: Optional[torch.cuda.Stream] = None     # the dispatch's
-        self.copy_in, self.cast, self.replay = timed(), timed(), timed()
+        self.stream: Optional[torch.cuda.Stream] = None     # the launch's
+        #: Per slot: the copy in's start, the cast's end, the replay's end.
+        self.events = [(timed(), timed(), timed()) for _ in range(SLOTS)]
+        self._read_with: List[Tuple[Optional[torch.cuda.Event], float]] = \
+            [(None, 0.0)] * SLOTS
         # Events that hold no anchor: two for the samples, while the first
         # and the current anchor are kept.
         self._free = [timed() for _ in range(4)]
@@ -128,12 +153,7 @@ class DeviceClock:
                 self._free.append(worse[0])
         return best
 
-    def start(self, tracer: Tracer, labels: Dict[str, str]) -> "DeviceClock":
-        """Ready the events for one dispatch; anchor first where due."""
-        self.stream = torch.cuda.current_stream(self.device)
-        t_sync = self.clock()
-        if self._anchor is not None and t_sync - self._host < ANCHOR_PERIOD_S:
-            return self
+    def _anchor_now(self, tracer: Tracer, labels: Dict[str, str], t_sync: float) -> None:
         ev, t0, t1 = self._sample()
         attrs: Dict[str, object] = {"error_us": (t1 - t0) * 1e6}
         if self._anchor is None:
@@ -147,13 +167,54 @@ class DeviceClock:
                 self._free.append(self._anchor)
         self._anchor, self._host = ev, t0
         tracer.record_span("serve.clock_anchor", t_sync, t1, **attrs, **labels)
-        return self
 
-    def read(self) -> Tuple[float, float, float]:
-        """The bucket's three events on the tracer's clock: the copy in's
-        start, the cast's end (the replay's start), the replay's end.  The
-        events must have completed."""
-        return self.at(self.copy_in), self.at(self.cast), self.at(self.replay)
+    def start(self, tracer: Tracer, labels: Dict[str, str], slot: int) -> tuple:
+        """Ready a slot's three events for one launch, anchoring first where
+        due; returns them."""
+        self.stream = torch.cuda.current_stream(self.device)
+        t_sync = self.clock()
+        if self._anchor is None or t_sync - self._host >= ANCHOR_PERIOD_S:
+            self._anchor_now(tracer, labels, t_sync)
+        self._read_with[slot] = (self._anchor, self._host)
+        return self.events[slot]
+
+    def read(self, slot: int) -> Tuple[float, float, float]:
+        """A slot's three events on the tracer's clock: the copy in's start,
+        the cast's end (the replay's start), the replay's end.  The events
+        must have completed."""
+        anchor, host = self._read_with[slot]
+        return tuple(host + anchor.elapsed_time(e) * 1e-3 for e in self.events[slot])
+
+
+@dataclass
+class _Slot:
+    """One of a server's two places for a bucket in flight, used in turn."""
+    index: int
+    staging: Optional[torch.Tensor] = None    # max_batch float32 images; pinned on the card
+    answers: Optional[torch.Tensor] = None    # the copy back's rows (card only, pinned)
+    done: Optional["torch.cuda.Event"] = None  # recorded after the copy back (card only)
+    unread: bool = False    # a copy reads the staging rows and nothing waited on done since
+    flight: Optional["InFlight"] = None       # the bucket launched here and not finished
+
+
+@dataclass
+class InFlight:
+    """A launched bucket: what :meth:`SynthesisServer.finish` needs to
+    answer it.  A launch that raised keeps its error here, for the finish."""
+    bucket: Bucket
+    slot: _Slot
+    t0: float                                   # the registry's clock at the launch
+    overlapped: int = 0
+    answers: Optional[torch.Tensor] = None      # the answer rows, once enqueued
+    error: Optional[Exception] = None
+    span: Optional[Span] = None                 # serve.dispatch, held until the finish
+    marks: List[float] = field(default_factory=list)    # the launch's phase bounds
+    stacked: Optional[Dict[str, int]] = None
+
+    def landed(self) -> bool:
+        """Whether :meth:`SynthesisServer.finish` would not wait: nothing of
+        the launch is left on the device, or the slot's event has completed."""
+        return not self.slot.unread or self.slot.done.query()
 
 
 @dataclass
@@ -218,6 +279,8 @@ class SynthesisServer:
         self.batcher = DynamicBatcher(config=self.config,
                                       registry=self.registry,
                                       tracer=self.tracer, labels=self._labels)
+        # Observed at a bucket's finish, from its launch: on a pipelined
+        # loop a bucket's residence on the thread, the next launch included.
         self._dispatch_seconds = self.registry.histogram(
             "serving_dispatch_seconds",
             "Wall time of one bucket dispatch (pad + execute + scatter)",
@@ -227,12 +290,16 @@ class SynthesisServer:
         self._thread: Optional[threading.Thread] = None
         self._stopping = threading.Event()
         self._dev = _UNSET          # the DeviceClock, made at the first traced dispatch
-        # A bucket's way in (_stage, _copy_in): one staging buffer, pinned on
-        # the card, made at the first dispatch; a device input per bucket size.
+        # A bucket's way in and out: two slots used in turn, each a staging
+        # buffer (pinned on the card) and on the card an answer buffer and an
+        # event; a device input per bucket size.
         self._on_card = program.device.type == "cuda"
-        self._staging: Optional[torch.Tensor] = None
+        self._slots = [_Slot(i) for i in range(SLOTS)]
+        self._turn = 0
         self._inputs: Dict[int, torch.Tensor] = {}
-        self._copy_pending = False  # a copy in that nothing has waited for yet
+        # The pipelined loop's thread and the bucket it left in flight.
+        self._pipeline_thread: Optional[int] = None
+        self._in_flight: Optional[InFlight] = None
 
     # -- request side -------------------------------------------------------
     def submit(self, image) -> ServingFuture:
@@ -259,115 +326,195 @@ class SynthesisServer:
 
     # -- dispatch side ------------------------------------------------------
     def dispatch_bucket(self, bucket: Bucket) -> None:
-        """Pad, execute, and scatter one released bucket.
+        """Pad, execute, and scatter one released bucket: :meth:`finish` of
+        :meth:`launch`.
 
         Public because the replica tier dispatches buckets it took (or
         stole) itself; the bucket need not come from this server's own
-        batcher — work stealing dispatches a peer's requests here.
+        batcher — work stealing dispatches a peer's requests here.  On the
+        thread of a :meth:`pipelined` loop the bucket is left in flight
+        instead, and the one launched before it is finished; where that
+        one's answers have already landed, it is finished first, so that
+        it does not wait behind the launch.
         """
-        t0 = self.registry.clock()
+        if self._pipeline_thread != threading.get_ident():
+            self.finish(self.launch(bucket))
+            return
+        if self._in_flight is not None and self._in_flight.landed():
+            self.settle()
+        flight = self.launch(bucket)
+        flight, self._in_flight = self._in_flight, flight
+        if flight is not None:
+            self.finish(flight)
+
+    def settle(self) -> None:
+        """Finish the bucket a :meth:`pipelined` loop left in flight, if any."""
+        flight, self._in_flight = self._in_flight, None
+        if flight is not None:
+            self.finish(flight)
+
+    @contextmanager
+    def pipelined(self):
+        """Around a serving loop, on its thread: on the card,
+        :meth:`dispatch_bucket` keeps one bucket in flight, so that the host
+        launches bucket k+1 before it waits for bucket k's answers; the loop
+        calls :meth:`settle` before it waits for the batcher, and the bucket
+        in flight is finished on the way out.  Off the card the program's
+        call is the work, so every bucket is finished at once."""
+        if self._on_card:
+            self._pipeline_thread = threading.get_ident()
+        try:
+            yield self
+        finally:
+            try:
+                self.settle()
+            finally:
+                self._pipeline_thread = None
+
+    def launch(self, bucket: Bucket) -> InFlight:
+        """The bucket's first half: look the program up, stage the images
+        into the next slot, copy them in and call the program; on the card,
+        enqueue the copy of its answers into the slot's pinned buffer and
+        the slot's event after it.  Returns without waiting for the device;
+        where a phase raises, the error is kept for :meth:`finish`.  At most
+        ``SLOTS`` buckets are launched and not finished at once."""
+        slot = self._slots[self._turn]
+        if slot.flight is not None:
+            raise RuntimeError(f"{SLOTS} buckets are in flight; finish one first")
+        self._turn = (self._turn + 1) % SLOTS
+        flight = slot.flight = InFlight(bucket, slot, self.registry.clock(),
+                                        overlapped=int(self._in_flight is not None))
         tr = self.tracer
-        marks = dev = span_cm = span = stacked = timed = None
-        failed = False
+        marks = events = held = None
         if tr is not None and tr.enabled:
             if bucket.bucket_id is None:
                 bucket.bucket_id = tr.new_id("bucket")
-            dev = self._device_clock(tr)
-            span_cm = tr.span("serve.dispatch", batch=bucket.batch,
-                              requests=len(bucket.requests),
-                              bucket=bucket.bucket_id, **self._labels)
-            span = span_cm.__enter__()
+            events = self._device_clock(tr, slot.index)
+            held = tr.held("serve.dispatch", batch=bucket.batch,
+                           requests=len(bucket.requests), bucket=bucket.bucket_id,
+                           overlapped=flight.overlapped, **self._labels)
+            flight.span = held.__enter__()
             # One clock read between two phases, which ends one and starts
-            # the next; the spans are recorded at the end, all at once.
-            marks = [tr.clock()]
+            # the next; the spans are recorded at the finish, all at once.
+            marks = flight.marks
+            marks.append(tr.clock())
         try:
             compiled = self.cache.get_or_build(self.program, bucket.batch)
             if marks is not None:
                 marks.append(tr.clock())
-            x = self._stage(bucket)
+            x = self._stage(bucket, slot)
             if marks is not None:
                 marks.append(tr.clock())
-                stacked = {"rows": len(x), "bytes": x.nbytes,
-                           "pinned": int(self._on_card)}
-                if dev is not None:
-                    dev.copy_in.record(dev.stream)
-            x = self._copy_in(x)
+                flight.stacked = {"rows": len(x), "bytes": x.nbytes,
+                                  "pinned": int(self._on_card)}
+                if events is not None:
+                    events[0].record(self._dev.stream)
+            x = self._copy_in(x, slot)
             if marks is not None:
-                if dev is not None:
-                    dev.cast.record(dev.stream)
+                if events is not None:
+                    events[1].record(self._dev.stream)
                 marks.append(tr.clock())
             out = compiled(x)
+            if events is not None:
+                events[2].record(self._dev.stream)
+            flight.answers = self._copy_back(out, slot) if self._on_card else out
             if marks is not None:
-                if dev is not None:
-                    dev.replay.record(dev.stream)
                 marks.append(tr.clock())
-            out = out.cpu()               # waits for the device
-            self._copy_pending = False    # and so for the copy in
-            if out.dtype == torch.bfloat16:
+        except Exception as exc:  # surfaced on the bucket's requests by finish
+            flight.error = exc
+            if slot.unread:       # its copy in may still read the staging rows
+                self._record_done(slot)
+            if marks is not None:
+                marks.append(tr.clock())
+        finally:
+            if held is not None:
+                held.__exit__(None, None, None)
+        return flight
+
+    def finish(self, flight: InFlight) -> None:
+        """The bucket's second half: wait on its slot's event alone (a
+        stream-wide wait would also wait for a bucket launched since),
+        widen its answers into a fresh array, and scatter them; or fail its
+        futures with the launch's error."""
+        tr = self.tracer if flight.span is not None else None
+        bucket, slot, exc = flight.bucket, flight.slot, flight.error
+        slot.flight = None
+        marks: List[float] = []
+        timed = None
+        if exc is None:
+            try:
+                if tr is not None:
+                    marks.append(tr.clock())
+                if slot.unread:
+                    slot.done.synchronize()
+                    slot.unread = False
+                out = flight.answers
                 # numpy has no bf16 (the reference's arrays use ml_dtypes'):
-                # widen, which is exact.
-                out = out.float()
-            out = out.numpy()
-            if marks is not None:
-                marks.append(tr.clock())
-                if dev is not None:
-                    # Complete: the copy back that followed them has returned.
-                    timed = dev.read()
-            self._dispatch_seconds.observe(self.registry.clock() - t0,
-                                           **self._labels)
-            with self._stats_lock:
-                self.stats.batches += 1
-                self.stats.padded_slots += bucket.padding
-                self.stats.bucket_counts[bucket.batch] = \
-                    self.stats.bucket_counts.get(bucket.batch, 0) + 1
-            for i, req in enumerate(bucket.requests):
-                req.future.set_result(out[i])
+                # widen, which is exact and makes a fresh array; another
+                # dtype is copied, so that no answer aliases a reused buffer.
+                out = out.float().numpy() if out.dtype == torch.bfloat16 else out.numpy().copy()
+                if tr is not None:
+                    marks.append(tr.clock())
+                    if self._dev is not None:
+                        timed = self._dev.read(slot.index)
+                self._dispatch_seconds.observe(self.registry.clock() - flight.t0,
+                                               **self._labels)
                 with self._stats_lock:
-                    self.stats.completed += 1
-        except Exception as exc:  # surface the failure on every request
-            failed = True
-            if span is not None:
-                span.attrs["error"] = True
+                    self.stats.batches += 1
+                    self.stats.padded_slots += bucket.padding
+                    self.stats.bucket_counts[bucket.batch] = \
+                        self.stats.bucket_counts.get(bucket.batch, 0) + 1
+                for i, req in enumerate(bucket.requests):
+                    req.future.set_result(out[i])
+                    with self._stats_lock:
+                        self.stats.completed += 1
+            except Exception as e:
+                exc = e
+        if exc is not None:  # surface the failure on every request
             for req in bucket.requests:
                 req.future.set_exception(exc)
                 with self._stats_lock:
                     self.stats.failed += 1
-        finally:
-            if span_cm is not None:
-                marks.append(tr.clock())
-                tr.record_spans(self._records(bucket, span, marks, stacked,
-                                              timed, failed))
-                span_cm.__exit__(None, None, None)
+        if tr is not None:
+            end = tr.clock()
+            if marks:
+                marks.append(end)
+            flight.span.t_end = end
+            if exc is not None:
+                flight.span.attrs["error"] = True
+            tr.record_spans(self._records(flight, marks, timed, exc is not None))
 
-    def _stage(self, bucket: Bucket) -> torch.Tensor:
+    def _stage(self, bucket: Bucket, slot: _Slot) -> torch.Tensor:
         """``serve.stack``: the bucket's images written in place into rows
-        ``0..n-1`` of the server's staging buffer, zeros into its padding
-        rows (an earlier, larger bucket may have filled them); returns the
+        ``0..n-1`` of the slot's staging buffer, zeros into its padding rows
+        (an earlier, larger bucket may have filled them); returns the
         buffer's first ``batch`` rows.
 
         The buffer holds ``max_batch`` float32 images, as clients send them,
-        and is pinned on the card.  Its rows are rewritten only once the last
-        copy in has read them: ``.cpu()`` in ``serve.copy_out`` waited for
-        it, or, where that bucket raised first, the stream is waited for
-        here."""
-        if self._copy_pending:
-            torch.cuda.current_stream(self.program.device).synchronize()
-            self._copy_pending = False
+        and is pinned on the card.  Its rows are rewritten only once the
+        last copy in has read them: the slot's event was waited for when
+        its bucket was finished, or, where that bucket raised first, here."""
+        if slot.unread:
+            slot.done.synchronize()
+            slot.unread = False
         b, n = bucket.batch, len(bucket.requests)
-        if self._staging is None:
+        if slot.staging is None:
             buf = torch.empty((self.config.max_batch, *self.program.net.input_shape),
                               dtype=torch.float32)
-            self._staging = buf.pin_memory() if self._on_card else buf
-        rows = self._staging.numpy()
+            slot.staging = buf.pin_memory() if self._on_card else buf
+        rows = slot.staging.numpy()
         np.stack([np.asarray(r.image, np.float32) for r in bucket.requests], out=rows[:n])
         rows[n:b] = 0
-        return self._staging[:b]
+        return slot.staging[:b]
 
-    def _copy_in(self, rows: torch.Tensor) -> torch.Tensor:
+    def _copy_in(self, rows: torch.Tensor, slot: _Slot) -> torch.Tensor:
         """``serve.copy_in``: on the card, one asynchronous copy of the
         staged rows into the device input the server keeps for that bucket
         size (in the program's input dtype), which the host does not wait
-        for; off the card, the rows themselves."""
+        for; off the card, the rows themselves.  One input per size serves
+        two buckets in flight: the copy in of bucket k+1 is ordered on the
+        stream after bucket k's replay has copied that input into the
+        graph's static input."""
         if not self._on_card:
             return rows.to(self.program.input_dtype)
         x = self._inputs.get(len(rows))
@@ -377,22 +524,49 @@ class SynthesisServer:
                                                   non_blocking=True)
         else:
             x.copy_(rows, non_blocking=True)
-        self._copy_pending = True
+        slot.unread = True
         return x
 
-    def _records(self, bucket: Bucket, parent, marks: List[float],
-                 stacked: Optional[Dict[str, int]],
+    def _copy_back(self, out: torch.Tensor, slot: _Slot) -> torch.Tensor:
+        """On the card, the end of ``serve.replay``: one asynchronous copy of
+        the answers into the first rows of the slot's pinned answer buffer,
+        then the slot's event; returns those rows."""
+        buf = slot.answers
+        if buf is None or buf.dtype != out.dtype or buf.shape[1:] != out.shape[1:]:
+            buf = torch.empty((self.config.max_batch, *out.shape[1:]), dtype=out.dtype)
+            buf = slot.answers = buf.pin_memory()
+        rows = buf[:len(out)]
+        rows.copy_(out, non_blocking=True)
+        self._record_done(slot)
+        return rows
+
+    def _record_done(self, slot: _Slot) -> None:
+        """Record the slot's event after all that is enqueued on the
+        program's device (not the thread's current one, which a replica on
+        another card does not set); the slot is unread until a finish or a
+        staging waits on it."""
+        if slot.done is None:
+            slot.done = torch.cuda.Event()
+        slot.done.record(torch.cuda.current_stream(self.program.device))
+        slot.unread = True
+
+    def _records(self, flight: InFlight, marks: List[float],
                  timed: Optional[Tuple[float, float, float]],
-                 failed: bool) -> List[tuple]:
+                 failed: bool) -> list:
         """A traced bucket's records for :meth:`Tracer.record_spans`: each
-        phase that began (where one raised, the last, tagged ``error``);
-        each request's ``serve.request``, a root from its enqueue to its
-        answer; and the device's spans where its events were read."""
+        phase that began, the launch's from its marks and the finish's from
+        ``marks`` (where one raised, the last, tagged ``error``); each
+        request's ``serve.request``, a root from its enqueue to its answer;
+        the device's spans where its events were read; and last the
+        ``serve.dispatch`` span itself."""
+        bucket, parent = flight.bucket, flight.span
         ids = {"bucket": bucket.bucket_id, **self._labels}
-        out = [(name, a, b, parent, dict(ids))
-               for name, a, b in zip(PHASES, marks, marks[1:])]
-        if stacked is not None:
-            out[1][4].update(stacked)
+        launched = flight.marks
+        phases = (list(zip(PHASES[:4], launched, launched[1:]))
+                  + list(zip(PHASES[4:], marks, marks[1:])))
+        out = [(name, a, b, parent, dict(ids)) for name, a, b in phases]
+        if flight.stacked is not None:
+            out[1][4].update(flight.stacked)
         if failed:
             out[-1][4]["error"] = True
         out += [("serve.request", r.enqueue_time, r.future.complete_time, None,
@@ -401,17 +575,17 @@ class SynthesisServer:
             a, b, c = timed
             out += [("dev.copy_in", a, b, parent, dict(ids)),
                     ("dev.replay", b, c, parent, dict(ids))]
-        return out
+        return out + [parent]
 
-    def _device_clock(self, tracer: Tracer) -> Optional[DeviceClock]:
-        """The server's :class:`DeviceClock`, readied for one dispatch;
-        None unless the program is on CUDA."""
+    def _device_clock(self, tracer: Tracer, slot: int) -> Optional[tuple]:
+        """The slot's three events of the server's :class:`DeviceClock`,
+        readied for one launch; None unless the program is on CUDA."""
         dev = self._dev
         if dev is _UNSET:
             where = self.program.device
             dev = self._dev = DeviceClock(where, tracer.clock) \
                 if where.type == "cuda" else None
-        return dev.start(tracer, self._labels) if dev is not None else None
+        return dev.start(tracer, self._labels, slot) if dev is not None else None
 
     def pump(self, force: bool = False) -> int:
         """Dispatch at most one bucket now; returns requests served."""
@@ -433,20 +607,25 @@ class SynthesisServer:
     # -- background loop ----------------------------------------------------
     def _loop(self) -> None:
         poll = max(self.policy.max_delay_s, 1e-4)
-        while not self._stopping.is_set():
-            with self.batcher.not_empty:
-                if self.batcher.depth == 0 and not self._stopping.is_set():
-                    self.batcher.not_empty.wait(timeout=poll)
-            bucket = self.batcher.take()
-            if bucket is not None:
-                self.dispatch_bucket(bucket)
-                continue
-            # queued but no trigger fired yet: sleep until the oldest
-            # request's deadline (capped at poll so stop() stays responsive)
-            deadline = self.batcher.next_deadline()
-            if deadline is not None:
-                self._stopping.wait(
-                    max(0.0, min(deadline - time.perf_counter(), poll)))
+        with self.pipelined():
+            while not self._stopping.is_set():
+                bucket = self.batcher.take()
+                if bucket is None:
+                    # Nothing released: answer the bucket in flight first.
+                    self.settle()
+                    with self.batcher.not_empty:
+                        if self.batcher.depth == 0 and not self._stopping.is_set():
+                            self.batcher.not_empty.wait(timeout=poll)
+                    bucket = self.batcher.take()
+                if bucket is not None:
+                    self.dispatch_bucket(bucket)
+                    continue
+                # queued but no trigger fired yet: sleep until the oldest
+                # request's deadline (capped at poll so stop() stays responsive)
+                deadline = self.batcher.next_deadline()
+                if deadline is not None:
+                    self._stopping.wait(
+                        max(0.0, min(deadline - time.perf_counter(), poll)))
 
     def start(self) -> "SynthesisServer":
         if self._thread is not None:

@@ -198,8 +198,9 @@ PORT_ONLY_SPANS = {"serve.lookup", "serve.stack", "serve.copy_in",
                    "serve.replay", "serve.copy_out", "serve.scatter",
                    "serve.request", "serve.clock_anchor", "dev.copy_in",
                    "dev.replay"}
-#: Attributes that only the port's spans carry: the request and bucket ids.
-PORT_ONLY_ATTRS = {"bucket", "request"}
+#: Attributes that only the port's spans carry: the request and bucket ids,
+#: and ``serve.dispatch``'s ``overlapped`` (launched behind another bucket).
+PORT_ONLY_ATTRS = {"bucket", "request", "overlapped"}
 
 
 def _comparable(spans, drop=frozenset()):
@@ -225,7 +226,7 @@ def test_batcher_and_dispatch_decisions_match_reference(monkeypatch, name):
     flush reasons in the registry), placements, steals and sheds; identical
     Prometheus text; every span the reference records, span for span, with
     its times, thread, parent's name and attributes (the port adds only the
-    ids), and no other span but the port's own phases."""
+    ids and ``overlapped``), and no other span but the port's own phases."""
     ref = _run_script("reference", monkeypatch, name)
     ours = _run_script("port", monkeypatch, name)
     assert ours["log"] == ref["log"]

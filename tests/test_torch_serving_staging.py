@@ -1,14 +1,15 @@
-"""A bucket's way to the program: its images written in place into the
-server's one staging buffer (pinned on the card), zeros in its padding rows,
-and on the card one asynchronous copy into a device input kept per bucket
-size.  The answers are the bucket's ``BatchProgram`` on ``np.stack`` of the
-same images, bit for bit.
+"""A bucket's way to the program: its images written in place into one of
+the server's two staging buffers, used in turn (pinned on the card), zeros in
+its padding rows, and on the card one asynchronous copy into a device input
+kept per bucket size.  The answers are the bucket's ``BatchProgram`` on
+``np.stack`` of the same images, bit for bit.
 
 No JAX here: the ``gpu`` case runs on the card with
 ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_serving_staging.py``.
 The CPU cases that need a card fake one: a program that says it is on
 ``cuda``, ``Tensor.to`` that keeps the tensor on the CPU, a
-``Tensor.pin_memory`` that does nothing, and a stream whose waits are counted.
+``Tensor.pin_memory`` that does nothing, and CUDA events whose waits are
+counted.
 """
 import threading
 from types import SimpleNamespace
@@ -64,20 +65,47 @@ class FakeProgram:
         return Doubler()
 
 
+class FakeEvent:
+    """An untimed CUDA event whose waits go into ``waits``, as the event.
+    ``stream`` is the stream it was last recorded on; ``query()`` reads
+    ``landed``, False unless a test says the device has caught up."""
+    landed = False
+
+    def __init__(self, waits):
+        self.waits = waits
+        self.stream = None
+
+    def record(self, stream=None):
+        self.stream = stream
+
+    def query(self):
+        return FakeEvent.landed
+
+    def synchronize(self):
+        self.waits.append(self)
+
+
 @pytest.fixture()
 def fake_card(monkeypatch):
-    """``cuda`` tensors stay on the CPU, pinning is a no-op; the stream's
-    waits are counted in the returned list."""
+    """``cuda`` tensors stay on the CPU, pinning is a no-op; every wait on
+    an event is counted in the returned list, each device (and the thread's
+    current one, asked for as None) has a stream of its own, and no stream
+    may be waited for."""
     to = torch.Tensor.to
-    waits = []
+    waits, streams = [], {}
 
     def to_cpu(self, *args, device=None, dtype=None, **kwargs):
         return to(self, dtype=dtype) if dtype is not None else self
 
+    def stream_wait():
+        raise AssertionError("the stream was waited for")
+
     monkeypatch.setattr(torch.Tensor, "to", to_cpu)
     monkeypatch.setattr(torch.Tensor, "pin_memory", lambda self, *args, **kwargs: self)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(
-        synchronize=lambda: waits.append(device)))
+    monkeypatch.setattr(torch.cuda, "Event", lambda enable_timing=False: FakeEvent(waits))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: streams.setdefault(
+        None if device is None else str(torch.device(device)),
+        SimpleNamespace(synchronize=stream_wait)))
     return waits
 
 
@@ -128,11 +156,12 @@ def test_buckets_through_one_buffer_answer_as_np_stack_and_pad_with_zeros(
             server.submit(rng.standard_normal(SHAPE, np.float32))
         assert server.pump(force=True) == n
     assert [b for b, _, _ in buckets] == [1 << (n - 1).bit_length() for n in sizes]
-    staging = server._staging
-    assert staging.shape == (8, *SHAPE) and not staging.is_pinned()
+    staging = [slot.staging for slot in server._slots]
+    assert len({t.data_ptr() for t in staging}) == 2
+    assert all(t.shape == (8, *SHAPE) and not t.is_pinned() for t in staging)
     assert len(inputs) == len(sizes)
     for x, (batch, images, _) in zip(inputs, buckets):
-        # The program got the bucket's rows of the one buffer: the images,
+        # The program got the bucket's rows of its slot's buffer: the images,
         # then zeros, whatever an earlier, larger bucket left there.
         assert x.shape == (batch, *SHAPE)
         np.testing.assert_array_equal(x[:len(images)].numpy(), np.stack(images))
@@ -160,12 +189,16 @@ def test_a_bucket_that_raises_after_staging_fails_its_futures_and_the_next_is_se
     assert not program.inputs[1][3].any()
     assert server.stats.failed == 4 and server.stats.completed == 3
     if waits is not None:
-        # The copy in of the bucket that raised was waited for once, before
-        # the next bucket's rows were written over it; then nothing was.
-        assert waits == [program.device]
+        # The failed bucket used slot 0, the next slot 1, whose answers were
+        # waited for on its own event.  Slot 0's copy in was waited for once,
+        # before the next bucket's rows were written over it, and then
+        # nothing but that bucket's answers.
+        failed_slot, served_slot = (slot.done for slot in server._slots)
+        assert waits == [served_slot]
         more = server.submit(np.zeros(3, np.float32))
         server.pump(force=True)
-        assert more.result(5.0).tolist() == [0.0, 0.0, 0.0] and len(waits) == 1
+        assert more.result(5.0).tolist() == [0.0, 0.0, 0.0]
+        assert waits == [served_slot, failed_slot, failed_slot]
 
 
 @pytest.mark.parametrize("threaded", [False, True])
@@ -196,7 +229,8 @@ def test_two_replicas_sharing_one_program_with_stealing_stay_bitwise(
         assert tier.drain() == 9 - served
         assert sum(r.stolen_requests for r in tier.replicas) > 0
     assert sum(len(imgs) for _, imgs, _ in buckets) == (len(images) if threaded else 9)
-    staged = [r.server._staging for r in tier.replicas if r.server._staging is not None]
+    staged = [slot.staging for r in tier.replicas for slot in r.server._slots
+              if slot.staging is not None]
     assert len({t.data_ptr() for t in staged}) == len(staged)
     _assert_bitwise(tiny_program, tier.cache, buckets)
 
@@ -247,7 +281,9 @@ def test_on_the_card_the_buffer_is_pinned_and_answers_match_the_pageable_path():
         want = compiled(torch.from_numpy(np.stack(chunk)).to(program.device)).cpu().float()
         for f, w in zip(futures, want.numpy()):
             np.testing.assert_array_equal(f.result(60.0), w)
-    assert server._staging.is_pinned() and server._staging.shape == (8, 3, 227, 227)
+    assert all(slot.staging.is_pinned() and slot.staging.shape == (8, 3, 227, 227)
+               for slot in server._slots)
+    assert all(slot.answers.is_pinned() for slot in server._slots)
     assert set(server._inputs) == {1, 2, 4, 8}
     assert all(x.device == program.device for x in server._inputs.values())
     stacks = [s for s in tracer.finished() if s.name == "serve.stack"]

@@ -61,7 +61,7 @@ class FakeEvent:
     made = []
 
     def __init__(self, enable_timing=False):
-        assert enable_timing
+        self.timing = enable_timing
         self.t = None
         FakeEvent.made.append(self)
 
@@ -202,9 +202,24 @@ def test_request_ids_join_each_request_to_its_buckets_spans():
 
 
 def test_without_a_tracer_no_span_event_id_or_clock_read_is_added(fake_card, monkeypatch):
-    monkeypatch.setattr(torch.cuda, "Event", _boom)
+    made = []
+
+    def untimed_event(enable_timing=False):
+        # The untraced path's own events: one a slot, which the host waits
+        # on for the answers; no timed event.
+        assert not enable_timing
+        made.append(FakeEvent())
+        return made[-1]
+
+    def program_stream(device=None):
+        # Asked for only to record a slot's event on the program's card.
+        assert device == program.device
+        return None
+
+    program = FakeProgram("cuda")
+    monkeypatch.setattr(torch.cuda, "Event", untimed_event)
     monkeypatch.setattr(torch.cuda, "synchronize", _boom)
-    monkeypatch.setattr(torch.cuda, "current_stream", _boom)
+    monkeypatch.setattr(torch.cuda, "current_stream", program_stream)
     monkeypatch.setattr(trace_mod, "Span", _boom)
     reads = []
 
@@ -212,7 +227,7 @@ def test_without_a_tracer_no_span_event_id_or_clock_read_is_added(fake_card, mon
         reads.append(1)
         return time.perf_counter()
 
-    tier = ReplicaSet(FakeProgram("cuda"), registry=obs.MetricsRegistry(clock=clock),
+    tier = ReplicaSet(program, registry=obs.MetricsRegistry(clock=clock),
                       config=ServingConfig(max_batch=4, max_delay_s=60.0))
     assert tier.tracer is None
     futures = [tier.submit(np.full(3, float(k), np.float32)) for k in range(10)]
@@ -223,6 +238,7 @@ def test_without_a_tracer_no_span_event_id_or_clock_read_is_added(fake_card, mon
     assert len(reads) == 2 * 3
     assert [f.result(5.0)[0] for f in futures] == [2.0 * k for k in range(10)]
     assert tier.replicas[0].server._dev is server_mod._UNSET
+    assert len(made) == server_mod.SLOTS
 
 
 def test_device_spans_sit_inside_their_host_phases_on_the_tracers_clock(fake_card, monkeypatch):
@@ -234,8 +250,10 @@ def test_device_spans_sit_inside_their_host_phases_on_the_tracers_clock(fake_car
         server.submit(np.full(3, float(k), np.float32))
     assert server.drain() == 7
     spans = tracer.finished()
-    # Four anchor events and three a bucket, made once and recorded again.
-    assert len(FakeEvent.made) == 7
+    # Four anchor events, and for each of the two slots three timed events
+    # and the untimed one the answers wait on, made once and recorded again.
+    assert len(FakeEvent.made) == 4 + 2 * 3 + 2
+    assert sum(not e.timing for e in FakeEvent.made) == 2
     anchors = [s for s in spans if s.name == "serve.clock_anchor"]
     assert len(anchors) == 4 and anchors[0].parent_id is None
     assert "drift_us" not in anchors[0].attrs
@@ -277,6 +295,28 @@ def test_tracer_records_many_spans_under_one_lock_and_gives_ids_without_it():
     assert (a.parent_id, b.parent_id, a.attrs) == (o.span_id, None, {"k": 1})
     assert [a.span_id, b.span_id, o.span_id] == [2, 3, 1]
     assert [tracer.new_id("bucket"), tracer.new_id("request")] == [2, 1]
+
+
+def test_a_held_span_nests_its_block_and_is_recorded_with_its_records():
+    tracer = obs.Tracer()
+    with tracer.held("outer", k=1) as outer:
+        assert tracer.open_spans() == [outer]
+        with tracer.span("inner"):
+            pass
+    # Off the stack at the block's end, and not recorded yet.
+    assert tracer.open_spans() == [] and [s.name for s in tracer.finished()] == ["inner"]
+    with tracer.span("next"):
+        pass
+    outer.t_end = outer.t_start + 1.0
+    tracer.record_spans([("child", outer.t_start, outer.t_end, outer, {}), outer])
+    inner, nxt, child, held = tracer.finished()
+    assert held is outer and held.attrs == {"k": 1} and held.parent_id is None
+    assert inner.parent_id == child.parent_id == outer.span_id and nxt.parent_id is None
+    with pytest.raises(RuntimeError):
+        with tracer.held("failed") as failed:
+            raise RuntimeError("boom")
+    assert failed.attrs["error"] is True and tracer.open_spans() == []
+    assert obs.Tracer(enabled=False).held("x").__enter__() is None
 
 
 def test_ids_stay_unique_under_many_threads():

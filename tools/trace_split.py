@@ -6,7 +6,9 @@ For each seed, one traced run of the cell on the card as ``bench/run.py --trace 
 makes it (the window with the tier's tracer on, then the profiled phase), without the
 check of the answers.  From the tier's spans over the window it prints:
 
-* each phase of ``serve.dispatch`` in mean ms, their cover of it, and its self time;
+* each phase of ``serve.dispatch`` in mean ms, their cover of it, and its self time
+  (on a pipelined replica a dispatch also holds the next bucket's launch), and the
+  share of buckets launched while another was in flight (``overlapped``);
 * the device spans (``dev.copy_in``, ``dev.replay``), the device's gap between buckets,
   and the device's idle time by the host phase open during it;
 * the nesting check: each ``dev.copy_in`` starts no earlier than 20 us before its
@@ -54,8 +56,10 @@ def split(spans, t0, t1):
         p = by_id.get(s.parent_id)
         if p is not None and p.name == "serve.dispatch":
             kids.setdefault(p.span_id, {})[s.name] = s
+    flags = [d.attrs["overlapped"] for d in dispatch if "overlapped" in d.attrs]
     out = {"buckets": len(dispatch),
-           "dispatch_ms": _mean_ms([d.duration_s for d in dispatch])}
+           "dispatch_ms": _mean_ms([d.duration_s for d in dispatch]),
+           "overlap_share": sum(flags) / len(flags) if flags else None}
     for name in PHASES + ("dev.copy_in", "dev.replay"):
         out[name + "_ms"] = _mean_ms([kids[d.span_id][name].duration_s for d in dispatch
                                       if name in kids.get(d.span_id, {})])
@@ -103,8 +107,9 @@ def _overlaps(intervals, a, b):
 
 def idle_by_phase(dispatch, kids, t0, t1):
     """Seconds of ``[t0, t1]`` in which no bucket's device span ran, by the host
-    phase open then: a phase, the dispatch outside its phases, or no dispatch
-    (one replica, so the spans of each kind are disjoint)."""
+    phase open then: a phase, a dispatch outside its phases, or no dispatch
+    (one replica, so the phases are disjoint; a pipelined replica's dispatches
+    overlap, so their union is taken)."""
     busy = sorted((k["dev.copy_in"].t_start, k["dev.replay"].t_end)
                   for k in (kids.get(d.span_id, {}) for d in dispatch) if "dev.copy_in" in k)
     if not busy:
@@ -118,7 +123,12 @@ def idle_by_phase(dispatch, kids, t0, t1):
         idle.append((t, t1))
     phases = sorted((s.t_start, s.t_end, s.name) for d in dispatch
                     for s in kids.get(d.span_id, {}).values() if s.name in PHASES)
-    whole = sorted((d.t_start, d.t_end, d.name) for d in dispatch)
+    whole = []
+    for a, b in sorted((d.t_start, d.t_end) for d in dispatch):
+        if whole and a <= whole[-1][1]:
+            whole[-1] = (whole[-1][0], max(whole[-1][1], b), "serve.dispatch")
+        else:
+            whole.append((a, b, "serve.dispatch"))
     total = dict.fromkeys(PHASES + ("serve.dispatch (self)", "between dispatches"), 0.0)
     for a, b in idle:
         in_phases = 0.0
