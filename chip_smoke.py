@@ -2823,11 +2823,11 @@ def main(argv=None) -> int:
                               cache=cache, registry=registry, tracer=tracer)
             buckets = []
             for r in tier.replicas:
-                def logged(bucket, _inner=r.server.dispatch_bucket):
+                def logged(bucket, _inner=r.server.launch):
                     buckets.append(([q.image for q in bucket.requests], bucket.batch,
                                     [q.future for q in bucket.requests]))
-                    _inner(bucket)
-                r.server.dispatch_bucket = logged
+                    return _inner(bucket)
+                r.server.launch = logged
             reports = []
 
             def back_to_back():

@@ -30,15 +30,14 @@ device-distinct replicas can never alias — the plan fingerprint covers the
 device profile identity, so each device's builds get their own entries.
 
 Like the single server, the tier is dual-mode: ``start()``/``stop()`` run
-one dispatch thread per replica, which on the card keeps one bucket in
-flight behind the one it launches (two-deep, by what the queue holds: with
-nothing released the bucket in flight is finished before the thread waits);
-``pump()``/``drain()`` are hand-pumped, serial and deterministic for tests.
+one dispatch thread per replica, each the replica server's
+:meth:`~repro_torch.serving.server.SynthesisServer.serve` loop over its own
+queue and its steals; ``pump()``/``drain()`` are hand-pumped, serial and
+deterministic for tests.
 """
 from __future__ import annotations
 
 import threading
-import time
 from typing import Dict, List, Optional, Sequence, Union
 
 import torch
@@ -323,35 +322,15 @@ class ReplicaSet:
             served += n
 
     # -- background loops ---------------------------------------------------
-    def _loop(self, i: int) -> None:
-        srv = self.replicas[i].server
-        poll = max(self.config.max_delay_s, 1e-4)
-        # On the card, each bucket taken is launched before the one in
-        # flight is finished (SynthesisServer.pipelined).
-        with srv.pipelined():
-            while not self._stopping.is_set():
-                bucket = self._take_for(i)
-                if bucket is not None:
-                    srv.dispatch_bucket(bucket)
-                    continue
-                # Nothing released: answer the bucket in flight before any wait.
-                srv.settle()
-                with srv.batcher.not_empty:
-                    if srv.batcher.depth == 0 and not self._stopping.is_set():
-                        srv.batcher.not_empty.wait(timeout=poll)
-                deadline = srv.batcher.next_deadline()
-                if deadline is not None:
-                    self._stopping.wait(
-                        max(0.0, min(deadline - time.perf_counter(), poll)))
-
     def start(self) -> "ReplicaSet":
         if self._threads:
             raise RuntimeError("replica set already started")
         self._stopping.clear()
         self._threads = [
-            threading.Thread(target=self._loop, args=(i,),
+            threading.Thread(target=r.server.serve,
+                             args=(lambda i=i: self._take_for(i), self._stopping),
                              name=f"replica-{i}", daemon=True)
-            for i in range(len(self.replicas))]
+            for i, r in enumerate(self.replicas)]
         for t in self._threads:
             t.start()
         return self

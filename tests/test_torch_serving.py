@@ -529,14 +529,14 @@ def test_server_round_trip_bitwise_and_within_reference(squeeze):
 
 
 def record_buckets(tier):
-    """Wrap every replica server's dispatch_bucket to log (images, batch) of
-    each bucket it dispatches."""
+    """Wrap every replica server's launch, which every bucket it dispatches
+    passes through, to log (images, batch) of each."""
     log = []
     for r in tier.replicas:
-        def logged(bucket, _inner=r.server.dispatch_bucket):
+        def logged(bucket, _inner=r.server.launch):
             log.append(([q.image for q in bucket.requests], bucket.batch))
-            _inner(bucket)
-        r.server.dispatch_bucket = logged
+            return _inner(bucket)
+        r.server.launch = logged
     return log
 
 

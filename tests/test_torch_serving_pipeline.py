@@ -4,7 +4,8 @@ and ``finish`` (a wait on that event alone, the widen, the scatter), and a
 serving loop on the card launches bucket k+1 before it finishes bucket k,
 unless bucket k's answers have already landed.
 
-The CPU cases drive two buckets in flight by hand, on the CPU and on a faked
+The CPU cases drive two buckets in flight by hand, and the one serving loop,
+``SynthesisServer.serve``, with a scripted ``take``, on the CPU and on a faked
 card (``fake_card`` of tests/test_torch_serving_staging.py: ``Tensor.to``
 keeps the tensor on the CPU, pinning does nothing, CUDA events count their
 waits and the stream may not be waited for).  No JAX here: the ``gpu`` case
@@ -14,6 +15,7 @@ runs on the card with
 import sys
 import threading
 import time
+import weakref
 
 import numpy as np
 import pytest
@@ -72,6 +74,32 @@ def _bucket(server, images):
     bucket = server.batcher.take(force=True)
     assert [r.future for r in bucket.requests] == futures
     return bucket
+
+
+def _scripted(buckets, stopping):
+    """A ``take`` for ``SynthesisServer.serve`` that hands out ``buckets`` in
+    turn, then sets ``stopping`` and returns None."""
+    queue = list(buckets)
+
+    def take():
+        if queue:
+            return queue.pop(0)
+        stopping.set()
+        return None
+
+    return take
+
+
+def _serve(server, take, stopping):
+    """Run ``server.serve(take, stopping)`` on a thread of its own to its end."""
+    loop = threading.Thread(target=server.serve, args=(take, stopping))
+    loop.start()
+    loop.join(10.0)
+    assert not loop.is_alive()
+
+
+def _idle(server):
+    return all(s.flight is None for s in server._slots)
 
 
 def _server(program, **kwargs):
@@ -200,24 +228,40 @@ def test_each_slot_event_is_recorded_on_the_programs_device(fake_card, device):
 @pytest.mark.parametrize("landed", [False, True])
 def test_a_bucket_whose_answers_landed_is_finished_before_the_next_launch(
         fake_card, monkeypatch, landed):
-    """On a pipelined loop the bucket in flight is finished behind the next
+    """In the serving loop the bucket in flight is finished behind the next
     launch only while its event is pending: one whose answers have landed
-    is answered first, and the next bucket is launched behind nothing."""
+    is answered first, and the next bucket is launched behind nothing.  A
+    finished bucket, its answer rows with it, is freed before the next
+    launch or take (where it is freed moves the clients' turn on the
+    interpreter)."""
     monkeypatch.setattr(FakeEvent, "landed", landed)
     tracer = obs.Tracer()
     server = _server(Halver("cuda"), tracer=tracer)
     server._dev = None            # no timed events here
-    log = []
+    log, finished, alive = [], [], []
+
+    def count_alive():
+        alive.append(sum(r() is not None for r in finished))
+
     for name in ("launch", "finish"):
         def logged(arg, _inner=getattr(server, name), _name=name):
             log.append(_name)
+            if _name == "finish":
+                finished.append(weakref.ref(arg))
+            else:
+                count_alive()
             return _inner(arg)
         setattr(server, name, logged)
-    buckets = []
-    with server.pipelined():
-        for k in range(3):
-            buckets.append(_bucket(server, [np.full(3, float(k), np.float32)] * 2))
-            server.dispatch_bucket(buckets[-1])
+    buckets = [_bucket(server, [np.full(3, float(k), np.float32)] * 2) for k in range(3)]
+    stopping = threading.Event()
+    scripted = _scripted(buckets, stopping)
+
+    def take():
+        count_alive()
+        return scripted()
+
+    _serve(server, take, stopping)
+    assert alive == [0] * 7
     if landed:
         assert log == ["launch", "finish"] * 3
     else:
@@ -226,7 +270,7 @@ def test_a_bucket_whose_answers_landed_is_finished_before_the_next_launch(
     dispatches = sorted((s for s in tracer.finished() if s.name == "serve.dispatch"),
                         key=lambda s: s.attrs["bucket"])
     assert [d.attrs["overlapped"] for d in dispatches] == ([0, 0, 0] if landed else [0, 1, 1])
-    assert server._in_flight is None and tracer.open_spans() == []
+    assert _idle(server) and tracer.open_spans() == []
 
 
 @pytest.mark.parametrize("tier", [False, True])
@@ -258,8 +302,8 @@ def test_with_an_empty_queue_the_loop_finishes_a_bucket_before_it_waits(fake_car
         while "wait" not in log and time.perf_counter() < deadline:
             time.sleep(0.001)
         assert log[:3] == ["launch", "finish", "wait"]
-        assert server._in_flight is None
-    assert server._pipeline_thread is None
+        assert _idle(server)
+    assert _idle(server)
 
 
 @pytest.mark.parametrize("drain", [True, False])
@@ -290,7 +334,7 @@ def test_stop_leaves_no_launched_future_unanswered(fake_card, monkeypatch, drain
     if drain:
         assert len(done) == len(futures)
         assert [f.result(0)[0] for f in futures] == [0.5 * k for k in range(203)]
-    assert tier.replicas[0].server._in_flight is None
+    assert _idle(tier.replicas[0].server)
 
 
 def test_pipelined_replicas_with_stealing_answer_every_client_under_stress(fake_card):
@@ -325,7 +369,7 @@ def test_pipelined_replicas_with_stealing_answer_every_client_under_stress(fake_
         sys.setswitchinterval(interval)
     assert not any(c.is_alive() for c in clients)
     assert not wrong and len(served) == 16 * 60
-    assert all(r.server._in_flight is None for r in tier.replicas)
+    assert all(_idle(r.server) for r in tier.replicas)
     flags = [s.attrs["overlapped"] for s in tier.tracer.finished() if s.name == "serve.dispatch"]
     assert len(flags) == sum(r.server.stats.batches for r in tier.replicas) and any(flags)
     assert tier.tracer.open_spans() == []
@@ -335,16 +379,22 @@ def test_dispatch_spans_carry_overlapped_and_leave_no_span_open(fake_card):
     tracer = obs.Tracer()
     server = _server(Halver("cuda"), tracer=tracer)
     server._dev = None            # no timed events here: the spans' shape only
-    with server.pipelined():
-        for k in range(3):
-            server.dispatch_bucket(_bucket(server, [np.full(3, float(k), np.float32)] * 5))
-            assert tracer.open_spans() == []
-            assert server._in_flight is not None
-        server.settle()
-    assert tracer.open_spans() == [] and server._in_flight is None
-    # Off a pipelined loop a bucket is finished at once.
+    buckets = [_bucket(server, [np.full(3, float(k), np.float32)] * 5) for k in range(3)]
+    stopping, seen = threading.Event(), []
+    scripted = _scripted(buckets, stopping)
+
+    def take():
+        # Before each take, no span is open, and after the first launch one
+        # bucket is in flight.
+        seen.append((tracer.open_spans(), sum(s.flight is not None for s in server._slots)))
+        return scripted()
+
+    _serve(server, take, stopping)
+    assert seen == [([], 0), ([], 1), ([], 1), ([], 1)]
+    assert tracer.open_spans() == [] and _idle(server)
+    # Outside the loop a bucket is finished at once.
     server.dispatch_bucket(_bucket(server, [np.zeros(3, np.float32)]))
-    assert server._in_flight is None
+    assert _idle(server)
     spans = tracer.finished()
     dispatches = sorted((s for s in spans if s.name == "serve.dispatch"),
                         key=lambda s: s.attrs["bucket"])
@@ -365,6 +415,44 @@ def test_dispatch_spans_carry_overlapped_and_leave_no_span_open(fake_card):
         b_lookup = next(p for p in phases[b.span_id] if p.name == "serve.lookup")
         assert a_phases["serve.replay"].t_end <= b_lookup.t_start
         assert b_lookup.t_end <= a_phases["serve.copy_out"].t_start <= a.t_end
+
+
+@pytest.mark.parametrize("tier", [False, True])
+def test_both_fronts_run_the_one_loop_and_a_dispatch_in_it_is_serial(
+        fake_card, monkeypatch, tier):
+    """``start()`` of the standalone server and of the replica tier runs
+    ``SynthesisServer.serve`` on the front's thread, and ``dispatch_bucket``
+    called on that thread, at the running loop's first take, has answered
+    its bucket and left nothing in flight when it returns."""
+    program = Halver("cuda")
+    config = ServingConfig(max_batch=4, max_delay_s=0.001)
+    front = ReplicaSet(program, config=config) if tier else SynthesisServer(program, config=config)
+    server = front.replicas[0].server if tier else front
+    serve, calls, inside = SynthesisServer.serve, [], []
+
+    def recording(self, take, stopping):
+        calls.append((self, threading.current_thread().name, stopping))
+
+        def probing():
+            if not inside:
+                bucket = self.batcher.take(force=True)
+                self.dispatch_bucket(bucket)
+                inside.append(([r.future.done() for r in bucket.requests], _idle(self)))
+            return take()
+
+        return serve(self, probing, stopping)
+
+    monkeypatch.setattr(SynthesisServer, "serve", recording)
+    # Queued before the loop starts: the first take's dispatch answers them.
+    first = [front.submit(np.full(3, float(k), np.float32)) for k in range(4)]
+    with front:
+        assert [f.result(5.0)[0] for f in first] == [0.0, 0.5, 1.0, 1.5]
+        # The loop itself serves what comes next.
+        later = [front.submit(np.full(3, 10.0 + k, np.float32)) for k in range(4)]
+        assert [f.result(5.0)[0] for f in later] == [5.0, 5.5, 6.0, 6.5]
+    assert calls == [(server, "replica-0" if tier else "synthesis-server", front._stopping)]
+    assert inside == [([True] * 4, True)]
+    assert _idle(server) and server.stats.batches == 2
 
 
 @pytest.mark.gpu
@@ -396,13 +484,13 @@ def test_on_the_card_the_loop_overlaps_and_answers_as_serial_pumps():
     tier = ReplicaSet(program, tracer=tracer, config=config)
     warm_replicas(tier)
     images = np.random.default_rng(0).standard_normal((16, 3, 227, 227), np.float32)
-    buckets, dispatch = [], tier.replicas[0].server.dispatch_bucket
+    buckets, launch = [], tier.replicas[0].server.launch
 
     def logged(bucket):
         buckets.append(([r.image for r in bucket.requests], [r.future for r in bucket.requests]))
-        dispatch(bucket)
+        return launch(bucket)
 
-    tier.replicas[0].server.dispatch_bucket = logged
+    tier.replicas[0].server.launch = logged
     stop = time.perf_counter() + 3.0
 
     def client(i):

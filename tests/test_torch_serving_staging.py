@@ -111,17 +111,17 @@ def fake_card(monkeypatch):
 
 def _record_buckets(monkeypatch):
     """Every dispatched bucket as ``(batch, images, futures)``, whichever
-    server dispatched it."""
+    server launched it."""
     seen, lock = [], threading.Lock()
-    dispatch = SynthesisServer.dispatch_bucket
+    launch = SynthesisServer.launch
 
     def recording(self, bucket):
         with lock:
             seen.append((bucket.batch, [np.array(r.image) for r in bucket.requests],
                          [r.future for r in bucket.requests]))
-        dispatch(self, bucket)
+        return launch(self, bucket)
 
-    monkeypatch.setattr(SynthesisServer, "dispatch_bucket", recording)
+    monkeypatch.setattr(SynthesisServer, "launch", recording)
     return seen
 
 
