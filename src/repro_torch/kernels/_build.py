@@ -2,7 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/repro_torch_kernels/lib<name>-<digest>.so`` at the repository root,
-for ``sm_90a`` (Hopper).  The digest covers the source and the flags, so an
+for ``sm_90a`` (Hopper); a ``csrc/<name>.cpp`` (host code: the serving
+tier's row copier) compiles there the same way with the host's C++
+compiler.  The digest covers the source and the flags, so an
 edited source builds anew and an unchanged one is loaded as it is.  Nothing
 builds at import: the first call that needs a kernel builds it, and
 :func:`build_all` starts every build at once (one ``nvcc`` per source, in
@@ -10,6 +12,9 @@ parallel) for callers that want the build time up front.
 
 The libraries are loaded with :mod:`ctypes`; every pointer and the stream go
 through ``c_void_p`` (an ``int`` argument would cut a 64-bit pointer).
+A function marked ``KEEP_LOCK`` in :data:`SIGNATURES` is called with the
+interpreter's lock held (``ctypes.PYFUNCTYPE``), for calls too short to hand
+it over; every other call releases it.
 """
 from __future__ import annotations
 
@@ -28,10 +33,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-pthread")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: The C signature of every exported function, per source.
+KEEP_LOCK = "keep_lock"
+#: The C signature of every exported function, per source; a third element
+#: ``KEEP_LOCK`` keeps the interpreter's lock through the call.
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "conv_mapmajor": {
         "conv_mapmajor_launch": (_I, [_P, _P, _P, _P] + [_I] * 14 + [_P]),
@@ -55,6 +63,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "matmul_mapmajor_int8_grid_blocks": (ctypes.c_longlong, [_I] * 3),
         "matmul_mapmajor_int8_block_k": (_I, []),
     },
+    "row_copier": {
+        "row_copier_new": (_P, []),
+        "row_copier_free": (None, [_P]),
+        "row_copier_copy": (None, [_P, _P, _P, ctypes.c_size_t, _P], KEEP_LOCK),
+        "row_copier_wait": (None, [_P]),
+    },
 }
 
 _lock = threading.Lock()
@@ -75,22 +89,37 @@ def nvcc_path() -> str:
                        "the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-def library_path(name: str) -> Path:
+def host_compiler_path() -> str:
+    found = shutil.which("c++") or shutil.which("g++")
+    if found is None:
+        raise RuntimeError("no C++ compiler (c++, g++) on PATH")
+    return found
+
+
+def _source(name: str) -> Tuple[Path, Tuple[str, ...]]:
+    """The source of a library and the flags it compiles with."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    return (src, NVCC_FLAGS) if src.exists() else (CSRC / f"{name}.cpp", HOST_FLAGS)
+
+
+def library_path(name: str) -> Path:
+    src, flags = _source(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
                             ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def _start(name: str) -> Optional[Tuple[subprocess.Popen, Path]]:
-    """Start ``nvcc`` for one source into a temporary file, or return None
-    when the library is already built."""
+    """Start ``nvcc`` (or the host's compiler) for one source into a
+    temporary file, or return None when the library is already built."""
     out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    src, flags = _source(name)
+    compiler = nvcc_path() if flags is NVCC_FLAGS else host_compiler_path()
+    cmd = [compiler, *flags, "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp
@@ -112,7 +141,8 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, tuple]:
             proc, tmp = job
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                failed.append(f"nvcc failed for {n}.cu (rc {proc.returncode}):\n{log}")
+                failed.append(f"{Path(proc.args[0]).name} failed for "
+                              f"{_source(n)[0].name} (rc {proc.returncode}):\n{log}")
                 continue
             os.replace(tmp, library_path(n))
             build_log[n] = (time.perf_counter() - t0, log)
@@ -122,7 +152,8 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, tuple]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu`` (or ``.cpp``), built first
+    if needed."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
@@ -131,7 +162,10 @@ def load(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(library_path(name)))
-            for fn, (restype, argtypes) in SIGNATURES[name].items():
+            for fn, (restype, argtypes, *keep) in SIGNATURES[name].items():
+                if keep == [KEEP_LOCK]:
+                    setattr(lib, fn, ctypes.PYFUNCTYPE(restype, *argtypes)((fn, lib)))
+                    continue
                 f = getattr(lib, fn)
                 f.restype = restype
                 f.argtypes = argtypes

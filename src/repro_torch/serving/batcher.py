@@ -25,7 +25,7 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, Any, Dict, List, Optional
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
 
 from ..obs import FRACTION_BUCKETS, MetricsRegistry, Tracer
 
@@ -111,6 +111,8 @@ class Request:
     future: ServingFuture
     enqueue_time: float
     request_id: Optional[int] = None     # given only when tracing
+    #: (ring, index) of the pinned row the image was written into at submit.
+    row: Optional[Tuple[Any, int]] = None
 
 
 @dataclass
@@ -162,11 +164,11 @@ class DynamicBatcher:
     def _observe_depth_locked(self) -> None:
         self._depth_gauge.set(len(self._queue), **self._labels)
 
-    def submit(self, image: Any) -> ServingFuture:
+    def submit(self, image: Any, row: Optional[Tuple[Any, int]] = None) -> ServingFuture:
         fut = ServingFuture()
         req = Request(image=image, future=fut, enqueue_time=time.perf_counter(),
                       request_id=None if self.tracer is None
-                      else self.tracer.new_id("request"))
+                      else self.tracer.new_id("request"), row=row)
         with self.not_empty:
             self._queue.append(req)
             self._observe_depth_locked()

@@ -69,13 +69,16 @@ def warm_replicas(replica_set: ReplicaSet) -> List[float]:
     0 pays the compiles, later replicas land hits and warm in ~0s) while
     device-distinct replicas each pay their own Stage-D builds — their
     fingerprints can never alias.  The measured cost is recorded on
-    ``Replica.warm_seconds``.
+    ``Replica.warm_seconds``.  Each replica's row ring is made after it
+    (on the card, its copier built the first time), so that no first
+    request pays for it; that is not in the warm seconds.
     """
     seconds = []
     for r in replica_set.replicas:
         r.warm_seconds = warm_buckets(replica_set.cache, r.program,
                                       replica_set.config.max_batch)
         seconds.append(r.warm_seconds)
+        r.server.ring()
     return seconds
 
 

@@ -7,7 +7,8 @@ program (on one card or several) and sharding the request stream.  A
 a *different* :class:`~repro_torch.device.DeviceProfile`) plus its own
 server and bounded batcher queue — behind one ``submit()`` front door:
 
-  admission   every submit observes all queue depths under one lock; when
+  admission   every submit observes all queue depths (a request admitted
+              and still being written into its row counts) under one lock; when
               the chosen (and then the shallowest) queue is at
               ``config.max_queue_depth``, the request is shed with a typed
               :class:`~repro_torch.serving.dispatch.LoadShedError` — queues are
@@ -170,6 +171,7 @@ class ReplicaSet:
         # enqueued under one lock, so the per-replica bound is strict (the
         # dispatch side only ever shrinks queues).
         self._admit_lock = threading.Lock()
+        self._admitting = [0] * len(self.replicas)   # claimed, not yet enqueued
         self._rr = 0
         self._threads: List[threading.Thread] = []
         self._stopping = threading.Event()
@@ -230,10 +232,14 @@ class ReplicaSet:
         """Admit one request to a replica queue, or shed.
 
         Raises :class:`LoadShedError` when every replica queue is at
-        ``config.max_queue_depth`` — the typed backpressure signal.
+        ``config.max_queue_depth`` — the typed backpressure signal.  The
+        replica is chosen and its row claimed under the admission lock; the
+        image is written into the row after it, so that several submitting
+        threads copy at once, and a request admitted but not yet enqueued
+        counts in its replica's depth meanwhile.
         """
         with self._admit_lock:
-            depths = self._depths()
+            depths = [d + a for d, a in zip(self._depths(), self._admitting)]
             idx = self.policy.select(depths, self._rr)
             self._rr += 1
             bound = self.config.max_queue_depth
@@ -249,10 +255,18 @@ class ReplicaSet:
                                           depths=repr(depths), bound=bound)
                     raise LoadShedError(depths, bound)
             replica = self.replicas[idx]
-            fut = replica.server.submit(image)
-            self._submitted.inc()
-            replica.peak_depth = max(replica.peak_depth, depths[idx] + 1)
-            return fut
+            row = replica.server.claim_row()
+            self._admitting[idx] += 1
+        fut = None
+        try:
+            fut = replica.server.submit(image, row)
+        finally:
+            with self._admit_lock:
+                self._admitting[idx] -= 1
+                if fut is not None:
+                    replica.peak_depth = max(replica.peak_depth, depths[idx] + 1)
+        self._submitted.inc()
+        return fut
 
     def infer_one(self, image, timeout: Optional[float] = 30.0):
         """Synchronous convenience wrapper: submit, flush, wait."""

@@ -9,27 +9,38 @@ buckets, each bucket is dispatched through a
 bucket: one CUDA graph on the card), and per-request rows come back to the
 host once and are scattered to their futures.
 
-A dispatch is two halves.  :meth:`SynthesisServer.launch` looks the
-program up, writes the bucket's images in place, by one call, into one of
-the server's two staging buffers (``max_batch`` rows each, made at first
-use, used in turn) with its padding rows zeroed, and calls the program; on
-the card the buffer is pinned, one asynchronous copy moves the rows into a
-device input kept per bucket size, and after the replay one asynchronous
-copy moves the answers into the same slot's pinned answer buffer, followed
-by the slot's CUDA event.  :meth:`SynthesisServer.finish` waits on that
-event alone (never the stream), widens the answers into a fresh array and
-scatters them.  ``dispatch_bucket`` is ``finish(launch(bucket))`` on
+A request's image goes into a row of the server's
+:class:`~repro_torch.serving.rows.RowRing` (``SLOTS * max_batch`` float32
+images and one for each request the queue may hold, up to
+``RING_QUEUE_BUCKETS * max_batch``; made and pinned at first use on the card,
+rows handed out in admission order): the thread that submits it enqueues the
+copy, which the ring's native worker makes, and the request carries its row
+beside its image.  A dispatch
+is two halves.  :meth:`SynthesisServer.launch` looks the program up, gathers
+the bucket's rows into runs of consecutive rows and calls the program; on
+the card one asynchronous copy a run moves the rows into a device input kept
+per bucket size, the padding rows are zeroed there, and after the replay one
+asynchronous copy moves the answers into the slot's pinned answer buffer,
+followed by the slot's CUDA event.  A request that got no row (the ring
+exhausted, no admission bound, or off the card) keeps its own image, which
+the launch writes into one of the server's two staging buffers
+(``max_batch`` rows each, made at first use, pinned on the card, used in
+turn); off the card that buffer, its padding rows zeroed, is the program's
+input.  :meth:`SynthesisServer.finish` waits on the slot's event alone
+(never the stream), gives the bucket's rows back to their ring, widens the
+answers into a fresh array and scatters them.  ``dispatch_bucket`` is
+``finish(launch(bucket))`` on
 every thread: ``pump``, ``drain`` and every caller outside the serving loop
 are serial.  The serving loop, :meth:`SynthesisServer.serve` (run by
 ``start()`` here and by each replica's thread of a ``ReplicaSet``), keeps
 one bucket in flight on the card: it launches bucket k+1 before it finishes
 bucket k, unless bucket k's event has already completed, and with nothing
 released it finishes the one in flight before it waits.  So the host's
-lookup, staging and scatter run while the device replays, no answer that
-has landed waits behind a launch, and the host writes a slot only after the
-event of the bucket that last read it has been waited for (at depth two,
-always; where a launch raised after its copy in, the next write into that
-slot waits on the slot's event first).
+lookup, gathering and scatter run while the device replays, no answer that
+has landed waits behind a launch, and a row or a staging row is written
+again only after the event of the bucket that last read it has been waited
+for, at that bucket's finish (where a launch raised after its copy in, the
+finish waits on the event the launch recorded).
 Off the card the program runs on the buffer's rows as the call is made, so
 the loop finishes each bucket at once there.
 
@@ -43,7 +54,9 @@ launch by :meth:`~repro_torch.obs.Tracer.held`, recorded after the scatter)
 runs from its lookup to its scatter and holds one child span per host phase
 (``PHASES``: lookup, stack, copy in, replay in the launch; copy out, scatter
 in the finish), one clock read apart within each half (``serve.stack``'s
-``pinned`` is 1 where the rows went into pinned memory, else 0); in the
+``pinned`` is 1 where the rows are pinned memory, else 0, ``presubmitted``
+counts the rows written at submit and ``runs`` the host-to-device copies
+issued); in the
 serving loop on the card the next bucket's launch phases lie between its
 replay and its copy out, and its ``overlapped`` is 1 where it was launched
 while another bucket of the server was in flight, else 0.  Each request gets a
@@ -79,6 +92,7 @@ from ..obs import MetricsRegistry, Span, Tracer
 from .batcher import Bucket, DynamicBatcher, ServingFuture
 from .config import ServingConfig
 from .program_cache import ProgramCache
+from .rows import RowRing
 
 #: Seconds between two anchors of a traced server's :class:`DeviceClock`,
 #: and the records it takes for one, keeping the best.
@@ -90,6 +104,10 @@ PHASES = ("serve.lookup", "serve.stack", "serve.copy_in", "serve.replay",
 #: Buckets a server can hold at once: the one the device runs and the one
 #: the host launches behind it, each with its own buffers and events.
 SLOTS = 2
+#: Buckets' worth of queued requests a server's row ring holds rows for, on
+#: top of its slots' buckets: a deeper queue's later requests take the
+#: staging path rather than pin memory for every request it may hold.
+RING_QUEUE_BUCKETS = 8
 _UNSET = object()
 
 
@@ -191,10 +209,10 @@ class DeviceClock:
 class _Slot:
     """One of a server's two places for a bucket in flight, used in turn."""
     index: int
-    staging: Optional[torch.Tensor] = None    # max_batch float32 images; pinned on the card
+    staging: Optional[torch.Tensor] = None    # rows for requests without one; pinned on the card
     answers: Optional[torch.Tensor] = None    # the copy back's rows (card only, pinned)
     done: Optional["torch.cuda.Event"] = None  # recorded after the copy back (card only)
-    unread: bool = False    # a copy reads the staging rows and nothing waited on done since
+    unread: bool = False    # a copy reads the bucket's rows and nothing waited on done since
     flight: Optional["InFlight"] = None       # the bucket launched here and not finished
 
 
@@ -298,17 +316,54 @@ class SynthesisServer:
         self._slots = [_Slot(i) for i in range(SLOTS)]
         self._turn = 0
         self._inputs: Dict[int, torch.Tensor] = {}
+        # The rows images are written into at submit: on the card with an
+        # admission bound, both slots' buckets and a full queue of at most
+        # RING_QUEUE_BUCKETS buckets.
+        b, depth = self.config.max_batch, self.config.max_queue_depth
+        self._ring_rows = (SLOTS * b + min(depth, RING_QUEUE_BUCKETS * b)
+                           if self._on_card and depth else 0)
+        self._ring: Optional[RowRing] = None
+        self._ring_lock = threading.Lock()
 
     # -- request side -------------------------------------------------------
-    def submit(self, image) -> ServingFuture:
-        """Enqueue one (C, H, W) image; returns its completion future."""
-        expect = tuple(self.program.net.input_shape)
-        if tuple(np.shape(image)) != expect:
-            raise ValueError(f"expected a single image of shape {expect}, "
-                             f"got {tuple(np.shape(image))}")
+    def submit(self, image, row=_UNSET) -> ServingFuture:
+        """Enqueue one (C, H, W) image; returns its completion future.
+
+        The image is handed to ``row`` (by default one claimed here, by
+        :meth:`claim_row`), whose ring copies it; the request carries the
+        row and keeps ``image``.  A row given and not used is given back."""
+        if row is _UNSET:
+            row = self.claim_row()
+        try:
+            expect = tuple(self.program.net.input_shape)
+            if tuple(np.shape(image)) != expect:
+                raise ValueError(f"expected a single image of shape {expect}, "
+                                 f"got {tuple(np.shape(image))}")
+            if row is not None:
+                row[0].write(row[1], image)
+        except BaseException:
+            if row is not None:
+                row[0].give_back(row[1])
+            raise
         with self._stats_lock:
             self.stats.requests += 1
-        return self.batcher.submit(image)
+        return self.batcher.submit(image, row)
+
+    def ring(self) -> Optional[RowRing]:
+        """The server's row ring, made and pinned (its copier built) at
+        first use; None off the card or without an admission bound."""
+        if self._ring is None and self._ring_rows:
+            with self._ring_lock:
+                if self._ring is None:
+                    self._ring = RowRing(self._ring_rows, tuple(self.program.net.input_shape))
+        return self._ring
+
+    def claim_row(self) -> Optional[Tuple[RowRing, int]]:
+        """``(ring, index)`` of a free row of the server's ring; None where
+        it has none (:meth:`ring`) or every row is out."""
+        ring = self._ring if self._ring is not None else self.ring()
+        i = None if ring is None else ring.claim()
+        return None if i is None else (ring, i)
 
     def infer_one(self, image, timeout: Optional[float] = 30.0):
         """Synchronous convenience wrapper: submit and wait.
@@ -365,14 +420,17 @@ class SynthesisServer:
             compiled = self.cache.get_or_build(self.program, bucket.batch)
             if marks is not None:
                 marks.append(tr.clock())
-            x = self._stage(bucket, slot)
+            runs, presubmitted = self._stage(bucket, slot)
             if marks is not None:
                 marks.append(tr.clock())
-                flight.stacked = {"rows": len(x), "bytes": x.nbytes,
-                                  "pinned": int(self._on_card)}
+                batch = bucket.batch
+                flight.stacked = {
+                    "rows": batch, "bytes": batch * 4 * int(np.prod(self.program.net.input_shape)),
+                    "pinned": int(self._on_card), "presubmitted": presubmitted,
+                    "runs": len(runs) if self._on_card else 0}
                 if events is not None:
                     events[0].record(self._dev.stream)
-            x = self._copy_in(x, slot)
+            x = self._copy_in(runs, bucket, slot)
             if marks is not None:
                 if events is not None:
                     events[1].record(self._dev.stream)
@@ -385,7 +443,7 @@ class SynthesisServer:
                 marks.append(tr.clock())
         except Exception as exc:  # surfaced on the bucket's requests by finish
             flight.error = exc
-            if slot.unread:       # its copy in may still read the staging rows
+            if slot.unread:       # its copy in may still read the bucket's rows
                 self._record_done(slot)
             if marks is not None:
                 marks.append(tr.clock())
@@ -396,21 +454,25 @@ class SynthesisServer:
 
     def finish(self, flight: InFlight) -> None:
         """The bucket's second half: wait on its slot's event alone (a
-        stream-wide wait would also wait for a bucket launched since),
-        widen its answers into a fresh array, and scatter them; or fail its
-        futures with the launch's error."""
+        stream-wide wait would also wait for a bucket launched since), give
+        the bucket's rows back to their ring, widen its answers into a fresh
+        array, and scatter them; or fail its futures with the launch's error,
+        its rows given back once the event its launch recorded is waited for."""
         tr = self.tracer if flight.span is not None else None
         bucket, slot, exc = flight.bucket, flight.slot, flight.error
         slot.flight = None
         marks: List[float] = []
         timed = None
-        if exc is None:
-            try:
-                if tr is not None:
-                    marks.append(tr.clock())
-                if slot.unread:
-                    slot.done.synchronize()
-                    slot.unread = False
+        try:
+            if tr is not None and exc is None:
+                marks.append(tr.clock())
+            if slot.unread:
+                slot.done.synchronize()
+                slot.unread = False
+            for req in bucket.requests:
+                if req.row is not None:
+                    req.row[0].give_back(req.row[1])
+            if exc is None:
                 out = flight.answers
                 # numpy has no bf16 (the reference's arrays use ml_dtypes'):
                 # widen, which is exact and makes a fresh array; another
@@ -431,8 +493,8 @@ class SynthesisServer:
                     req.future.set_result(out[i])
                     with self._stats_lock:
                         self.stats.completed += 1
-            except Exception as e:
-                exc = e
+        except Exception as e:
+            exc = exc or e
         if exc is not None:  # surface the failure on every request
             for req in bucket.requests:
                 req.future.set_exception(exc)
@@ -447,47 +509,71 @@ class SynthesisServer:
                 flight.span.attrs["error"] = True
             tr.record_spans(self._records(flight, marks, timed, exc is not None))
 
-    def _stage(self, bucket: Bucket, slot: _Slot) -> torch.Tensor:
-        """``serve.stack``: the bucket's images written in place into rows
-        ``0..n-1`` of the slot's staging buffer, zeros into its padding rows
-        (an earlier, larger bucket may have filled them); returns the
-        buffer's first ``batch`` rows.
+    def _stage(self, bucket: Bucket, slot: _Slot) -> Tuple[list, int]:
+        """``serve.stack``: the bucket's rows as runs ``(position, rows)``,
+        each a block of consecutive rows of one buffer that holds the images
+        of consecutive requests, and how many of them were written at
+        submit.  On the card a request's row in its ring is read as it is,
+        once the ring's copy into it has finished; any other request's image
+        is written now into the slot's staging buffer at its position in the
+        bucket.  Off the card, where every
+        image goes there, the staging buffer's padding rows are zeroed too.
 
-        The buffer holds ``max_batch`` float32 images, as clients send them,
-        and is pinned on the card.  Its rows are rewritten only once the
-        last copy in has read them: the slot's event was waited for when
-        its bucket was finished, or, where that bucket raised first, here."""
+        The staging buffer holds ``max_batch`` float32 images, as clients
+        send them, and is pinned on the card.  Its rows are rewritten only
+        once the last copy in has read them: the slot's event was waited
+        for at its bucket's finish."""
+        runs: List[list] = []     # [position, buffer, first row, rows]
+        presubmitted = 0
+        for p, req in enumerate(bucket.requests):
+            if req.row is not None and self._on_card:
+                ring, i = req.row
+                ring.ready(i)
+                buf = ring.buffer
+                presubmitted += 1
+            else:
+                buf, i = self._staging(slot), p
+                buf.numpy()[p] = np.asarray(req.image, np.float32)
+            last = runs[-1] if runs else None
+            if last is not None and last[1] is buf and last[2] + last[3] == i:
+                last[3] += 1
+            else:
+                runs.append([p, buf, i, 1])
+        if not self._on_card:
+            self._staging(slot).numpy()[len(bucket.requests):bucket.batch] = 0
+        return [(p, buf[i:i + m]) for p, buf, i, m in runs], presubmitted
+
+    def _staging(self, slot: _Slot) -> torch.Tensor:
+        """The slot's staging buffer, made at first use, once nothing reads it."""
         if slot.unread:
             slot.done.synchronize()
             slot.unread = False
-        b, n = bucket.batch, len(bucket.requests)
         if slot.staging is None:
             buf = torch.empty((self.config.max_batch, *self.program.net.input_shape),
                               dtype=torch.float32)
             slot.staging = buf.pin_memory() if self._on_card else buf
-        rows = slot.staging.numpy()
-        np.stack([np.asarray(r.image, np.float32) for r in bucket.requests], out=rows[:n])
-        rows[n:b] = 0
-        return slot.staging[:b]
+        return slot.staging
 
-    def _copy_in(self, rows: torch.Tensor, slot: _Slot) -> torch.Tensor:
-        """``serve.copy_in``: on the card, one asynchronous copy of the
-        staged rows into the device input the server keeps for that bucket
-        size (in the program's input dtype), which the host does not wait
-        for; off the card, the rows themselves.  One input per size serves
-        two buckets in flight: the copy in of bucket k+1 is ordered on the
-        stream after bucket k's replay has copied that input into the
-        graph's static input."""
+    def _copy_in(self, runs: list, bucket: Bucket, slot: _Slot) -> torch.Tensor:
+        """``serve.copy_in``: on the card, one asynchronous copy a run into
+        the device input the server keeps for the bucket's size (in the
+        program's input dtype) and its padding rows zeroed there, none of
+        which the host waits for; off the card, the staging buffer's rows.
+        One input per size serves two buckets in flight: the copies of
+        bucket k+1 are ordered on the stream after bucket k's replay has
+        copied that input into the graph's static input."""
+        b = bucket.batch
         if not self._on_card:
-            return rows.to(self.program.input_dtype)
-        x = self._inputs.get(len(rows))
+            return slot.staging[:b].to(self.program.input_dtype)
+        x = self._inputs.get(b)
         if x is None:
-            x = self._inputs[len(rows)] = rows.to(device=self.program.device,
-                                                  dtype=self.program.input_dtype,
-                                                  non_blocking=True)
-        else:
-            x.copy_(rows, non_blocking=True)
+            x = self._inputs[b] = torch.empty((b, *self.program.net.input_shape)).to(
+                device=self.program.device, dtype=self.program.input_dtype)
         slot.unread = True
+        for p, rows in runs:
+            x[p:p + len(rows)].copy_(rows, non_blocking=True)
+        if len(bucket.requests) < b:
+            x[len(bucket.requests):].zero_()
         return x
 
     def _copy_back(self, out: torch.Tensor, slot: _Slot) -> torch.Tensor:

@@ -164,11 +164,13 @@ def test_an_answer_is_unchanged_after_later_buckets_reuse_both_slots(fake_card, 
     server.finish(second)
     server.finish(third)
     assert {second.slot.index, third.slot.index} == {0, 1}
+    # Every image went through a row of the ring, none through a staging buffer.
+    assert all(slot.staging is None for slot in server._slots)
     for got, want in zip(answers, kept):
         np.testing.assert_array_equal(got, want)
         assert got.dtype == np.float32
+        assert not np.shares_memory(got, server._ring.views)
         for slot in server._slots:
-            assert not np.shares_memory(got, slot.staging.numpy())
             assert not np.shares_memory(got, slot.answers.view(torch.uint8).numpy())
     assert [a[0] for a in answers] == [1.0, 1.5, 2.0, 2.5]
     # Each finish waited on its own slot's event, never on the stream.
@@ -194,15 +196,16 @@ def test_a_launch_that_raises_fails_only_its_own_futures(request, card):
         with pytest.raises(RuntimeError, match="boom"):
             r.future.result(5.0)
     assert (server.stats.completed, server.stats.failed) == (2, 3)
-    # Of the next two buckets, the one into the failed one's slot waits for
-    # that bucket's copy in before its rows are written.
+    # The failed bucket's finish waited for its copy in before its rows went
+    # back; each of the next two buckets waits for its own slot's event.
     again = [_bucket(server, [np.full(3, 6.0 * k, np.float32)]) for k in (1, 2)]
     for bucket in again:
         server.dispatch_bucket(bucket)
     assert [b.requests[0].future.result(5.0)[0] for b in again] == [3.0, 6.0]
     if waits is not None:
         first, second = (slot.done for slot in server._slots)
-        assert waits == [first, first, second, second]
+        assert waits == [first, second, first, second]
+        assert server._ring.free == len(server._ring.buffer)
 
 
 @pytest.mark.parametrize("device", ["cuda:0", "cuda:1"])
@@ -222,7 +225,7 @@ def test_each_slot_event_is_recorded_on_the_programs_device(fake_card, device):
     server.finish(served)
     server.finish(failed)
     assert [r.future.result(0).tolist() for r in served.bucket.requests] == [[1.0] * 3] * 3
-    assert fake_card == [served.slot.done]
+    assert fake_card == [served.slot.done, failed.slot.done]
 
 
 @pytest.mark.parametrize("landed", [False, True])

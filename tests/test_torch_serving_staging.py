@@ -1,8 +1,12 @@
-"""A bucket's way to the program: its images written in place into one of
-the server's two staging buffers, used in turn (pinned on the card), zeros in
-its padding rows, and on the card one asynchronous copy into a device input
-kept per bucket size.  The answers are the bucket's ``BatchProgram`` on
-``np.stack`` of the same images, bit for bit.
+"""A bucket's way to the program.  On the card each image is written at
+submit into a row of the server's pinned ring, and the launch copies the
+bucket's rows, one asynchronous copy a run of consecutive rows, into a
+device input kept per bucket size, whose padding rows it zeroes there; a
+request without a row, and every request off the card, is written at the
+launch into one of the server's two staging buffers, used in turn, zeros in
+its padding rows off the card.  The answers are the bucket's
+``BatchProgram`` on ``np.stack`` of the same images, bit for bit
+(tests/test_torch_serving_presubmit.py holds the ring's own cases).
 
 No JAX here: the ``gpu`` case runs on the card with
 ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_serving_staging.py``.
@@ -189,16 +193,17 @@ def test_a_bucket_that_raises_after_staging_fails_its_futures_and_the_next_is_se
     assert not program.inputs[1][3].any()
     assert server.stats.failed == 4 and server.stats.completed == 3
     if waits is not None:
-        # The failed bucket used slot 0, the next slot 1, whose answers were
-        # waited for on its own event.  Slot 0's copy in was waited for once,
-        # before the next bucket's rows were written over it, and then
-        # nothing but that bucket's answers.
+        # The failed bucket used slot 0, the next slot 1.  The failed
+        # bucket's finish waited on the event its launch recorded after the
+        # copy in, before its rows went back to the ring; each later bucket
+        # waited on its own slot's event for its answers, and nothing else.
         failed_slot, served_slot = (slot.done for slot in server._slots)
-        assert waits == [served_slot]
+        assert waits == [failed_slot, served_slot]
         more = server.submit(np.zeros(3, np.float32))
         server.pump(force=True)
         assert more.result(5.0).tolist() == [0.0, 0.0, 0.0]
-        assert waits == [served_slot, failed_slot, failed_slot]
+        assert waits == [failed_slot, served_slot, failed_slot]
+        assert server._ring.free == len(server._ring.buffer)
 
 
 @pytest.mark.parametrize("threaded", [False, True])
@@ -255,10 +260,10 @@ def test_the_stack_span_says_whether_the_rows_went_into_pinned_memory(
 
 @pytest.mark.gpu
 def test_on_the_card_the_buffer_is_pinned_and_answers_match_the_pageable_path():
-    """Full-width AlexNet: the staging buffer is pinned, ``serve.stack``
-    says so, and the answers at buckets 1, 2, 4 and 8 equal those of the
-    same ``BatchProgram`` given ``torch.from_numpy(np.stack(...)).to(device)``,
-    bit for bit."""
+    """Full-width AlexNet: the ring's buffer is pinned, every image went
+    through it, ``serve.stack`` says so, and the answers at buckets 1, 2, 4
+    and 8 equal those of the same ``BatchProgram`` given
+    ``torch.from_numpy(np.stack(...)).to(device)``, bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: pinned memory and the asynchronous copy")
     from repro_torch.cnn import alexnet, init_network_params
@@ -272,7 +277,8 @@ def test_on_the_card_the_buffer_is_pinned_and_answers_match_the_pageable_path():
     server = SynthesisServer(program, tracer=tracer,
                              config=ServingConfig(max_batch=8, max_delay_s=60.0))
     rng = np.random.default_rng(0)
-    # The first bucket of 8 fills the buffer; the smaller ones write over it.
+    # Full buckets of each size, each copied by one run of ring rows into
+    # the device input of its size.
     for batch in (8, 1, 2, 4, 8):
         chunk = rng.standard_normal((batch, 3, 227, 227), np.float32)
         futures = [server.submit(im) for im in chunk]
@@ -281,10 +287,13 @@ def test_on_the_card_the_buffer_is_pinned_and_answers_match_the_pageable_path():
         want = compiled(torch.from_numpy(np.stack(chunk)).to(program.device)).cpu().float()
         for f, w in zip(futures, want.numpy()):
             np.testing.assert_array_equal(f.result(60.0), w)
-    assert all(slot.staging.is_pinned() and slot.staging.shape == (8, 3, 227, 227)
-               for slot in server._slots)
-    assert all(slot.answers.is_pinned() for slot in server._slots)
+    ring = server._ring
+    assert ring.buffer.is_pinned() and ring.buffer.shape == (64 + 2 * 8, 3, 227, 227)
+    assert ring.free == len(ring.buffer)
+    assert all(slot.staging is None and slot.answers.is_pinned() for slot in server._slots)
     assert set(server._inputs) == {1, 2, 4, 8}
     assert all(x.device == program.device for x in server._inputs.values())
     stacks = [s for s in tracer.finished() if s.name == "serve.stack"]
-    assert len(stacks) == 5 and all(s.attrs["pinned"] == 1 for s in stacks)
+    assert [(s.attrs["rows"], s.attrs["presubmitted"], s.attrs["runs"], s.attrs["pinned"])
+            for s in stacks] == [(8, 8, 1, 1), (1, 1, 1, 1), (2, 2, 1, 1), (4, 4, 1, 1),
+                                 (8, 8, 1, 1)]

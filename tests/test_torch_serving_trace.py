@@ -137,7 +137,8 @@ def test_a_buckets_phases_nest_under_its_dispatch_share_its_id_and_cover_it(tiny
         assert d.attrs["bucket"] in waits
         assert all(p.attrs == {"bucket": d.attrs["bucket"]} for p in phases[:1] + phases[2:])
         assert phases[1].attrs == {"bucket": d.attrs["bucket"], "rows": d.attrs["batch"],
-                                   "bytes": d.attrs["batch"] * 3 * 67 * 67 * 4, "pinned": 0}
+                                   "bytes": d.attrs["batch"] * 3 * 67 * 67 * 4, "pinned": 0,
+                                   "presubmitted": 0, "runs": 0}
         assert d.t_start <= phases[0].t_start and phases[-1].t_end <= d.t_end
         assert all(a.t_end <= b.t_start for a, b in zip(phases, phases[1:]))
         coverage.append(sum(p.duration_s for p in phases) / d.duration_s)
