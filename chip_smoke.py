@@ -206,6 +206,19 @@ Phases; each raises on failure, so a failing phase never exits 0:
    all-to-all (an ``all-to-all`` entry, all-gathers under 0.05 GB a
    device) with the all-reduces it made before the cache moved.
    All the dry runs start first and run beside (a).
+14. the channel LayerNorm kernel (``kernels/csrc/layernorm_nchw.cu``,
+   ConvNeXt-T's 23 LayerNorms): against its plain version on the card at the
+   five shapes full-width ConvNeXt-T gives it at batch 8 (8x96x56x56,
+   8x192x28x28, 8x384x14x14, 8x768x7x7 and the 8x768 vector), within one
+   bf16 ulp at every element, at the scale of the terms ``|x_hat w| + |b|``
+   that both round once (where they cancel, an output near 0 may be off by
+   several of its own ulps); its device time at
+   each shape (``graph_ms``) beside its bytes' bound, its plain version's
+   and the library's LayerNorm on a permuted copy; then full-width
+   ConvNeXt-T through ``synthesize`` and ``for_batch(8)``: 2 x 23 wrapper
+   launches (warm-up and capture), 23 launches of ``layernorm_nchw_kernel``
+   on the card in each of 4 replays, and a replay bit-equal to the eager
+   walk.  Its entry in the ``kernels`` line sums the 23 layers.
 
 With ``--baseline TREE`` (an older checkout of this repository that has
 the int8 datapath, e.g. unpacked from ``git archive`` under ``build/``),
@@ -2038,6 +2051,110 @@ def phase13(repo: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: ConvNeXt-T's LayerNorm inputs at batch 8: (C, H x W of the plane, or 0
+#: for the pooled vector) -> layers of that shape, by ``infer_shapes``.
+LN_SHAPES = ((96, 56), (192, 28), (384, 14), (768, 7), (768, 0))
+
+
+def phase14(repo: str) -> dict:
+    """Phase 14: the channel LayerNorm kernel (see the module docstring)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.cnn import convnext_t, infer_shapes, init_network_params
+    from repro_torch.core import PlannerConfig, synthesize
+    from repro_torch.kernels.layernorm import layernorm_nchw, layernorm_nchw_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    net = convnext_t()
+    shapes = infer_shapes(net)
+    per_shape = {}
+    for l in net.layers:
+        if l.kind == "layernorm":
+            s = shapes[l.inputs[0]]
+            key = (s[0], s[1] if len(s) == 3 else 0)
+            per_shape[key] = per_shape.get(key, 0) + 1
+    check(sorted(per_shape) == sorted(LN_SHAPES) and sum(per_shape.values()) == 23,
+          f"ConvNeXt-T's LayerNorm shapes {per_shape}")
+    rows, max_ulps = [], 0.0
+    for c, hw in LN_SHAPES:
+        shape = (8, c, hw, hw) if hw else (8, c)
+        x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.5).bfloat16()
+        w = torch.randn((c,), device=dev, generator=gen)
+        b = torch.randn((c,), device=dev, generator=gen)
+        got = layernorm_nchw(x, w, b, 1e-6)
+        want = layernorm_nchw_plain(x, w, b, 1e-6)
+        # Both round one f32 value x_hat * w + b to bf16, their sums taken in
+        # another order: one bf16 ulp at the scale of the two terms (an
+        # output near 0, where they cancel, is many of its own ulps off).
+        xf = x.float()
+        mean = xf.mean(dim=1, keepdim=True)
+        x_hat = (xf - mean) * torch.rsqrt((xf - mean).square().mean(dim=1, keepdim=True) + 1e-6)
+        bc = (1, -1) + (1,) * (x.ndim - 2)
+        terms = (x_hat * w.reshape(bc)).abs() + b.reshape(bc).abs()
+        torch.cuda.synchronize()
+        ulp = bf16_ulp(torch.maximum(terms, torch.maximum(got.float().abs(),
+                                                          want.float().abs())))
+        ulps = ((got.float() - want.float()).abs() / ulp).max().item()
+        check(got.dtype == torch.bfloat16 and ulps <= 1.0,
+              f"layernorm_nchw {shape}: {ulps} bf16 ulps from its plain version")
+        max_ulps = max(max_ulps, ulps)
+        perm = (0, 2, 3, 1) if hw else (0, 1)
+        xp = x.permute(*perm).contiguous()
+        nbytes = 2 * 2 * x.numel()                # bf16 in and out, once each
+        r = {"shape": list(shape), "layers": per_shape[(c, hw)],
+             "ms": graph_ms([lambda: layernorm_nchw(x, w, b, 1e-6)]),
+             "plain_ms": graph_ms([lambda: layernorm_nchw_plain(x, w, b, 1e-6)]),
+             "library_ms": graph_ms([lambda: F.layer_norm(xp, (c,), w.bfloat16(),
+                                                          b.bfloat16(), 1e-6)]),
+             "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "max_ulps": ulps}
+        rows.append(r)
+        print(f"  layernorm_nchw {'x'.join(map(str, shape)):14s} x{r['layers']:2d}: "
+              f"{r['ms']:.4f} ms | plain {r['plain_ms']:.4f} | library (permuted copy) "
+              f"{r['library_ms']:.4f} | bound {r['bound_ms']:.5f} (bytes) | {ulps:.2f} ulps")
+
+    # The main path: full-width ConvNeXt-T, its bucket of 8 one CUDA graph.
+    params = init_network_params(net, SEED, "cuda")
+    prog = synthesize(net, params, device="h100", planner_config=PlannerConfig(batch=8))
+    layernorm_nchw.launches = 0
+    bp = prog.for_batch(8)
+    check(bp.captured, "ConvNeXt-T's for_batch(8) did not capture a CUDA graph")
+    built = layernorm_nchw.launches
+    check(built == 2 * 23, f"layernorm_nchw: {built} wrapper launches in the warm-up "
+                           "and the capture, 46 expected")
+    x8 = torch.randn((8, 3, 224, 224), device=dev, generator=gen)
+    replays = 4
+    outs = []
+    dev_counts = device_launches(lambda: outs.extend(bp(x8) for _ in range(replays)),
+                                 ["layernorm_nchw_kernel"])
+    check(layernorm_nchw.launches == built, "a replay called the LayerNorm wrapper")
+    check(dev_counts["layernorm_nchw_kernel"] == 23 * replays,
+          f"layernorm_nchw_kernel launched {dev_counts['layernorm_nchw_kernel']} times "
+          f"in {replays} replays, {23 * replays} expected "
+          f"({dev_counts['cudaGraphLaunch']} cudaGraphLaunch calls)")
+    check(all(torch.equal(o, outs[0]) for o in outs), "two replays of one input differ")
+    check(torch.equal(outs[0], prog.infer(x8)), "the replay differs from the eager walk")
+    print(f"ConvNeXt-T for_batch(8): {built} wrapper launches (warm-up and capture); "
+          f"on the card in {replays} replays {dev_counts}; replay bit-equal to the eager walk")
+    total = lambda k: sum(r[k] * r["layers"] for r in rows)
+    entry = {"name": "layernorm_nchw", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/layernorm_nchw.cu",
+             "replaces": None, "launches": built,
+             "replay_launches_on_card": {"layernorm_nchw_kernel":
+                                         dev_counts["layernorm_nchw_kernel"]},
+             "max_ulps": max_ulps, "ms": total("ms"), "plain_ms": total("plain_ms"),
+             "bound_ms": total("bound_ms"), "bound_by": "bytes",
+             "library_ms": total("library_ms"),
+             "shapes": "ConvNeXt-T's 23 LayerNorms at batch 8, RELAXED"}
+    print(f"layernorm_nchw, ConvNeXt-T's 23 layers at batch 8: {entry['ms']:.4f} ms "
+          f"(bound {entry['bound_ms']:.4f} ms, plain {entry['plain_ms']:.4f}, library "
+          f"{entry['library_ms']:.4f}); at most {max_ulps:.2f} bf16 ulps from plain")
+    del prog, bp, params
+    torch.cuda.empty_cache()
+    return {"per_shape": rows, "entry": entry}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2981,6 +3098,10 @@ def main(argv=None) -> int:
     results["phase13"] = phase13(repo)
     phase_done("mesh_dryrun")
 
+    # ---- 14. the channel LayerNorm kernel (ConvNeXt-T) --------------------
+    results["phase14"] = phase14(repo)
+    phase_done("layernorm")
+
     # One entry per kernel: its wrapper's launches on its main path (warm-ups
     # and captures) and its globals' launches on the card in that path's
     # replays; times summed over the layers it serves in one batch-8
@@ -3026,6 +3147,7 @@ def main(argv=None) -> int:
                 f"int8 library call: {first['call'] or 'none'}; bf16 F.conv2d on the "
                 f"same layers: {sum(cudnn_ms[(r['layer'], 8)] for r in sel):.4f} ms")
         summary.append(entry)
+    summary.append(results["phase14"]["entry"])
     results["kernels"] = summary
     results["phase_seconds"] = phase_s
     if args.out:

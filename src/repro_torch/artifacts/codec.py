@@ -38,7 +38,7 @@ import torch
 
 from ..core.graph import FusedGroup, GraphProgram
 from ..core.mode_selector import ModeSelectionReport
-from ..core.network import Layer, NetworkDescription
+from ..core.network import Layer, NetworkDescription, make_layer
 from ..core.parallelism import Parallelism
 from ..core.plan import (ExecutionPlan, IterationRecord, LayerPlan,
                          SynthesisReport, ValidationRecord)
@@ -61,21 +61,26 @@ class ArtifactCodecError(ValueError):
 _LAYER_FIELDS = ("name", "kind", "inputs", "out_channels", "kernel",
                  "stride", "padding", "use_bias", "pool_size", "lrn_size",
                  "lrn_alpha", "lrn_beta")
+#: Fields a kind adds to its layer document (the reference has no such
+#: kind, so every other document keeps the reference's keys).
+_KIND_FIELDS = {"layernorm": ("eps",)}
 
 
 def encode_layer(layer: Layer) -> Dict[str, Any]:
-    doc = {f: getattr(layer, f) for f in _LAYER_FIELDS}
+    fields = _LAYER_FIELDS + _KIND_FIELDS.get(layer.kind, ())
+    doc = {f: getattr(layer, f) for f in fields}
     doc["inputs"] = list(layer.inputs)
     return doc
 
 
 def decode_layer(doc: Dict[str, Any]) -> Layer:
     try:
-        kwargs = {f: doc[f] for f in _LAYER_FIELDS}
+        fields = _LAYER_FIELDS + _KIND_FIELDS.get(doc["kind"], ())
+        kwargs = {f: doc[f] for f in fields}
     except KeyError as e:
         raise ArtifactCodecError(f"layer document missing field {e}") from None
     kwargs["inputs"] = tuple(kwargs["inputs"])
-    return Layer(**kwargs)
+    return make_layer(**kwargs)
 
 
 def encode_network(net: NetworkDescription) -> Dict[str, Any]:

@@ -40,7 +40,12 @@ def infer_shapes(net: NetworkDescription) -> Dict[str, Tuple[int, ...]]:
             shapes[l.name] = (l.out_channels,
                               _pool_out(h, l.kernel, l.stride, l.padding),
                               _pool_out(w, l.kernel, l.stride, l.padding))
-        elif l.kind in ("relu", "lrn", "softmax", "bn"):
+        elif l.kind == "dwconv":
+            c, h, w = s
+            shapes[l.name] = (c, _pool_out(h, l.kernel, l.stride, l.padding),
+                              _pool_out(w, l.kernel, l.stride, l.padding))
+        elif l.kind in ("relu", "lrn", "softmax", "bn", "layernorm", "gelu",
+                        "scale"):
             shapes[l.name] = s
         elif l.kind == "add":
             if len(ins) != 2 or ins[0] != ins[1]:
@@ -75,9 +80,10 @@ def init_network_params(net: NetworkDescription,
                         generator: Union[torch.Generator, int],
                         device: "str | torch.device | None" = "cuda",
                         dtype: torch.dtype = torch.float32) -> Params:
-    """He-normal weights (OIHW conv, (K, N) dense) and zero biases, drawn on
-    the CPU from ``generator`` (or a seed) and placed on ``device``; a
-    ``bn`` gets the identity (scale 1, shift 0), as a fresh one is."""
+    """He-normal weights (OIHW conv, (C, 1, K, K) dwconv, (K, N) dense) and
+    zero biases, drawn on the CPU from ``generator`` (or a seed) and placed
+    on ``device``; a ``bn`` or ``layernorm`` gets the identity (scale 1,
+    shift 0) and a ``scale`` the factor 1, as fresh ones are."""
     dev = torch_device(device)
     if isinstance(generator, int):
         generator = torch.Generator().manual_seed(generator)
@@ -89,6 +95,9 @@ def init_network_params(net: NetworkDescription,
             cin = in_shape[0]
             shape = (l.out_channels, cin, l.kernel, l.kernel)
             fan_in = cin * l.kernel * l.kernel
+        elif l.kind == "dwconv":
+            shape = (in_shape[0], 1, l.kernel, l.kernel)
+            fan_in = l.kernel * l.kernel
         else:
             fan_in = int(math.prod(in_shape))
             shape = (fan_in, l.out_channels)
@@ -96,13 +105,16 @@ def init_network_params(net: NetworkDescription,
             * math.sqrt(2.0 / fan_in)
         p = {"w": w.to(device=dev, dtype=dtype)}
         if l.use_bias:
-            p["b"] = torch.zeros((l.out_channels,), dtype=dtype, device=dev)
+            p["b"] = torch.zeros((shape[0] if l.kind == "dwconv" else l.out_channels,),
+                                 dtype=dtype, device=dev)
         params[l.name] = p
     for l in net.layers:
-        if l.kind == "bn":
-            c = shapes[l.name][0]
+        c = shapes[l.name][0]
+        if l.kind in ("bn", "layernorm"):
             params[l.name] = {"w": torch.ones((c,), dtype=dtype, device=dev),
                               "b": torch.zeros((c,), dtype=dtype, device=dev)}
+        elif l.kind == "scale":
+            params[l.name] = {"w": torch.ones((c,), dtype=dtype, device=dev)}
     return params
 
 

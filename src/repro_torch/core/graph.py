@@ -8,8 +8,9 @@ The counterpart of ``repro.core.graph``.  A pipeline of pure passes lowers a
   2. ``eliminate_dead_layers``   drop layers that cannot reach the output
   3. ``fuse_conv_epilogues``     conv/dense + bias + ReLU -> one group
   4. ``fuse_pointwise_chains``   runs of shape-preserving single-input
-                                 layers (relu / lrn / softmax) -> one group,
-                                 also behind a residual ``add``
+                                 layers (relu / lrn / softmax / layernorm /
+                                 gelu / scale) -> one group, also behind a
+                                 residual ``add`` or a ``dwconv``
 
 Each pass records its decisions in the program's ``trace``; the traces, the
 group structure and the fusion digests equal the JAX package's
@@ -37,12 +38,16 @@ if TYPE_CHECKING:  # pragma: no cover - typing only
 #: a chain of them is one dispatch over one activation buffer.  ``lrn``
 #: reads a cross-channel window but writes elementwise — it fuses at the
 #: dispatch level even though no kernel folds it into a MAC epilogue.
-FUSIBLE_POINTWISE = frozenset({"relu", "lrn", "softmax"})
+#: ConvNeXt's ``layernorm`` (over the channels at each pixel), ``gelu`` and
+#: ``scale`` are the same kind of member.
+FUSIBLE_POINTWISE = frozenset({"relu", "lrn", "softmax", "layernorm", "gelu",
+                               "scale"})
 
 #: Anchors of a pointwise chain besides :data:`FUSIBLE_POINTWISE`: a
-#: residual ``add`` takes the chain that follows it (ResNet's ReLU) into its
-#: own dispatch.
-POINTWISE_ANCHORS = FUSIBLE_POINTWISE | {"add"}
+#: residual ``add`` takes the chain that follows it (ResNet's ReLU, the
+#: LayerNorm before a ConvNeXt downsample) into its own dispatch, and so
+#: does a ``dwconv`` (ConvNeXt's LayerNorm after it).
+POINTWISE_ANCHORS = FUSIBLE_POINTWISE | {"add", "dwconv"}
 
 #: Epilogue kinds a conv/dense *kernel* can fold into its MAC loop
 #: (applied to the accumulator before the output write).  Deliberately
@@ -132,12 +137,17 @@ class GraphProgram:
         Folded into ``ExecutionPlan.fingerprint`` so a fused program can
         never alias its unfused counterpart in the ProgramCache — the
         per-layer plan entries of the two are identical; only the grouping
-        differs, and the grouping changes the compiled program.
+        differs, and the grouping changes the compiled program.  A member
+        with :attr:`~repro_torch.core.network.Layer.attrs` (a ``dwconv``'s
+        kernel, a ``layernorm``'s epsilon) adds them, so two programs that
+        differ in them alone never share an entry either.
         """
         h = hashlib.sha256()
         h.update(self.net_name.encode())
         for g in self.groups:
-            members = "+".join(f"{n}/{k}" for n, k in g.signature())
+            members = "+".join(f"{l.name}/{l.kind}"
+                               + (f"{list(l.attrs)}" if l.attrs else "")
+                               for l in g.layers)
             h.update(f"|{g.name}<-{','.join(g.inputs)}:{members}".encode())
         return h.hexdigest()[:16]
 

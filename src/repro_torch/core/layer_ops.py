@@ -19,6 +19,15 @@ SAME split; ``lrn`` and ``softmax`` compute in f32.  The JAX package has no
 their type (a bf16 sum rounds once), ``bn`` computes ``x * w[c] + b[c]`` in
 f32 and rounds to the input's type (the synthesizer folds every ``bn`` that
 follows a conv into it, so only a stray one runs here), ``pad`` adds zeros.
+Nor has it ConvNeXt's kinds: ``dwconv`` is the library's depthwise conv
+(ATen's own kernel on the card: the hand-written conv kernels compute no
+grouped conv, so a plan that names them for it raises) with the mode's
+operands, its bias added inside the conv and its output rounded once;
+``layernorm`` normalizes over the channels at each pixel in f32 and rounds
+once, on the card in bf16 by the channel LayerNorm kernel
+(``kernels/layernorm``); ``gelu`` is the exact (erf) form in f32 from the
+input, rounded once; ``scale`` multiplies by its per-channel factor in f32
+and rounds once (the synthesizer folds it into the conv before it).
 """
 from __future__ import annotations
 
@@ -28,9 +37,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .parallelism import conv_policy, conv_sequential, same_pads
-from .plan import IMPL_SEQUENTIAL, IMPL_XLA, LayerPlan
-from .precision import full_f32, mode_dot
+from .parallelism import _pad_same, conv_policy, conv_sequential, same_pads
+from .plan import IMPL_DEFAULT, IMPL_SEQUENTIAL, IMPL_XLA, LayerPlan
+from .precision import ComputeMode, full_f32, mode_dot, prepare_operand, resolve_weight
 
 LayerOp = Callable[..., torch.Tensor]
 
@@ -286,3 +295,54 @@ def _bn(layer, plan, params, ins):
 def _pad(layer, plan, params, ins):
     lo, hi = layer.pads
     return F.pad(ins[0], (lo, hi, lo, hi))
+
+
+@register_layer_op("dwconv")
+def _dwconv(layer, plan, params, ins):
+    if plan.impl not in (IMPL_XLA, IMPL_DEFAULT):
+        raise ValueError(f"dwconv {layer.name}: no {plan.impl!r} implementation "
+                         "(only the library computes a depthwise conv)")
+    x = prepare_operand(ins[0], plan.mode)
+    w = resolve_weight(params["w"], plan.mode)
+    b = params["b"].to(x.dtype) if layer.use_bias else None   # the card adds it in f32
+    k, s = layer.kernel, layer.stride
+    pad = 0
+    if layer.padding == "SAME" and s == 1 and k % 2 == 1:
+        pad = k // 2                      # SAME at stride 1: k // 2 each side
+    else:
+        x = _pad_same(x, k, k, s, layer.padding)
+    if x.device.type == "cpu":            # f32 sums of the operands' values
+        x, w, b = x.float(), w.float(), None if b is None else b.float()
+    with full_f32():
+        y = F.conv2d(x, w, b, stride=s, padding=pad, groups=x.shape[1])
+    return y.to(plan.mode.out_dtype)
+
+
+@register_layer_op("layernorm")
+def _layernorm(layer, plan, params, ins):
+    from ..kernels.layernorm import layernorm_nchw, layernorm_nchw_plain
+    x = ins[0]
+    # A LayerNorm is structural: anchoring its own group (or after an add)
+    # it plans PRECISE and normalizes whatever its producer made, so the
+    # operand's type says the program's precision.  Under a dwconv's bf16
+    # mode an f32 operand is a fault, and the kernel raises for it.
+    if x.device.type == "cuda" and (x.dtype == torch.bfloat16
+                                    or plan.mode is not ComputeMode.PRECISE):
+        return layernorm_nchw(x, params["w"], params["b"], layer.eps)
+    return layernorm_nchw_plain(x, params["w"], params["b"], layer.eps)
+
+
+@register_layer_op("gelu")
+def _gelu(layer, plan, params, ins):
+    x = ins[0]
+    if x.device.type == "cuda":           # computes in f32, rounds once
+        return F.gelu(x)
+    return F.gelu(x.float()).to(x.dtype)
+
+
+@register_layer_op("scale")
+def _scale(layer, plan, params, ins):
+    x = ins[0]
+    g = params["w"].float()
+    g = g[None, :, None, None] if x.ndim == 4 else g
+    return (x.float() * g).to(x.dtype)

@@ -19,7 +19,7 @@ class Layer:
     name: str
     kind: str                      # conv, relu, maxpool, avgpool, gap, lrn,
                                    # dense, flatten, concat, softmax, add,
-                                   # bn, pad
+                                   # bn, pad, dwconv, layernorm, gelu, scale
     inputs: Tuple[str, ...] = ()
     out_channels: int = 0
     kernel: int = 0
@@ -33,9 +33,10 @@ class Layer:
 
     @property
     def has_params(self) -> bool:
-        """Whether the layer multiplies by weights (conv, dense).  A ``bn``
-        carries a per-channel scale and shift instead (``w``, ``b``)."""
-        return self.kind in ("conv", "dense")
+        """Whether the layer multiplies by weights (conv, dense, dwconv).  A
+        ``bn`` or ``layernorm`` carries a per-channel scale and shift instead
+        (``w``, ``b``), a ``scale`` its per-channel factor (``w``)."""
+        return self.kind in ("conv", "dense", "dwconv")
 
     @property
     def pads(self) -> Tuple[int, int]:
@@ -47,7 +48,35 @@ class Layer:
     @property
     def is_inexactable(self) -> bool:
         """Layers whose arithmetic mode the selector tunes."""
-        return self.kind in ("conv", "dense")
+        return self.has_params
+
+    @property
+    def attrs(self) -> Tuple[object, ...]:
+        """The fields of a ConvNeXt kind that change what it computes beyond
+        its weights, for the fusion digest: a ``dwconv``'s kernel, stride
+        and padding (a :class:`LayerNormLayer` adds its epsilon); empty for
+        every other kind."""
+        if self.kind == "dwconv":
+            return (self.kernel, self.stride, self.padding)
+        return ()
+
+
+@dataclass(frozen=True)
+class LayerNormLayer(Layer):
+    """A ``layernorm`` layer: a :class:`Layer` with its epsilon, a field of
+    its own class so that every other kind's layer keeps the JAX package's
+    fields."""
+    eps: float = 1e-6
+
+    @property
+    def attrs(self) -> Tuple[object, ...]:
+        return (self.eps,)
+
+
+def make_layer(**fields) -> Layer:
+    """A layer of the class its ``kind`` takes (:class:`LayerNormLayer` for
+    a ``layernorm``)."""
+    return (LayerNormLayer if fields.get("kind") == "layernorm" else Layer)(**fields)
 
 
 @dataclass
@@ -118,6 +147,26 @@ class NetworkDescription:
         (:attr:`Layer.pads`)."""
         return self.add(Layer(name, "pad", tuple(inputs or (self._tail(),)),
                               kernel=kernel))
+
+    def dwconv(self, name, kernel, stride=1, padding="SAME", inputs=None):
+        """Depthwise conv: one ``kernel`` x ``kernel`` filter per channel,
+        weights (C, 1, K, K) and a bias (``w``, ``b``)."""
+        return self.add(Layer(name, "dwconv", tuple(inputs or (self._tail(),)),
+                              kernel=kernel, stride=stride, padding=padding))
+
+    def layernorm(self, name, eps=1e-6, inputs=None):
+        """LayerNorm over the channels at each pixel (or over a vector):
+        biased variance plus ``eps``, then ``* w[c] + b[c]``."""
+        return self.add(LayerNormLayer(name, "layernorm",
+                                       tuple(inputs or (self._tail(),)), eps=eps))
+
+    def gelu(self, name, inputs=None):
+        """GELU in its exact form, ``x * Phi(x)`` (the erf)."""
+        return self.add(Layer(name, "gelu", tuple(inputs or (self._tail(),))))
+
+    def scale(self, name, inputs=None):
+        """Per-channel scale ``x * w[c]`` with no shift (a layer scale)."""
+        return self.add(Layer(name, "scale", tuple(inputs or (self._tail(),))))
 
     @property
     def param_layers(self) -> List[Layer]:

@@ -181,7 +181,8 @@ class ExecutionPlan:
         """Every parametric layer on one backend: ``"xla"`` (library conv
         and matmul), ``"mapmajor"`` (the hand-written kernels; a conv under
         a non-OLP policy keeps the library path, as in the JAX package) or
-        ``"sequential"`` (the scalar loop-nest baseline)."""
+        ``"sequential"`` (the scalar loop-nest baseline).  A ``dwconv`` takes
+        the library path under every backend."""
         if backend not in UNIFORM_BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of "
                              f"{sorted(UNIFORM_BACKENDS)}")
@@ -195,7 +196,7 @@ class ExecutionPlan:
                 continue
             impl = UNIFORM_BACKENDS[backend]
             if (impl == IMPL_KERNEL and layer.kind == "conv"
-                    and parallelism is not Parallelism.OLP):
+                    and parallelism is not Parallelism.OLP) or layer.kind == "dwconv":
                 impl = IMPL_XLA
             layers[layer.name] = LayerPlan(impl=impl, parallelism=parallelism,
                                            mode=mode, u=u, reason=why,

@@ -19,6 +19,10 @@ The counterpart of ``repro.core.planner``:
                        the smallest power of two covering its channels.
   Rule 3 (roofline)    Compute-bound, wide convs and large matmuls go to the
                        map-major kernels; the rest stay on the library path.
+  Depthwise            A ``dwconv`` always takes the library path: the
+                       map-major kernels compute no grouped conv.  Its cost
+                       is its own (``2 C Ho Wo K^2`` FLOPs an image), not a
+                       dense conv's.
   Thread policy        OLP always.
 
 :func:`predict_group_seconds` turns the rule-3 cost of each fused group into
@@ -90,6 +94,10 @@ def trace_shapes(net: NetworkDescription) -> Dict[str, Tuple[int, ...]]:
             shapes[l.name] = (l.out_channels,
                               _spatial_out(h, l.kernel, l.stride, l.padding),
                               _spatial_out(w, l.kernel, l.stride, l.padding))
+        elif l.kind == "dwconv":
+            c, h, w = s
+            shapes[l.name] = (c, _spatial_out(h, l.kernel, l.stride, l.padding),
+                              _spatial_out(w, l.kernel, l.stride, l.padding))
         elif l.kind in ("maxpool", "avgpool"):
             c, h, w = s
             shapes[l.name] = (c,
@@ -109,7 +117,8 @@ def trace_shapes(net: NetworkDescription) -> Dict[str, Tuple[int, ...]]:
         elif l.kind == "pad":
             c, h, w = s
             shapes[l.name] = (c, h + sum(l.pads), w + sum(l.pads))
-        elif l.kind in ("relu", "lrn", "softmax", "bn", "add"):
+        elif l.kind in ("relu", "lrn", "softmax", "bn", "add", "layernorm",
+                        "gelu", "scale"):
             shapes[l.name] = tuple(s)
         else:
             raise ValueError(f"{net.name}: no shape rule for layer kind "
@@ -161,6 +170,19 @@ def conv_cost(cin: int, h: int, w: int, layer: Layer, batch: int,
     flops = 2.0 * batch * cin * k * k * m * ho * wo
     byts = bytes_per_el * (batch * cin * h * w + m * cin * k * k
                            + batch * m * ho * wo)
+    return LayerCost(flops, byts, profile, dtype)
+
+
+def dwconv_cost(c: int, h: int, w: int, layer: Layer, batch: int,
+                bytes_per_el: int = 2, profile: DeviceProfile = DEFAULT_PROFILE,
+                dtype: str = "bf16") -> LayerCost:
+    """A depthwise conv's own work: ``K^2`` multiply-adds an output element,
+    its input, its (C, 1, K, K) weights and its output once."""
+    ho = _spatial_out(h, layer.kernel, layer.stride, layer.padding)
+    wo = _spatial_out(w, layer.kernel, layer.stride, layer.padding)
+    k = layer.kernel
+    flops = 2.0 * batch * c * ho * wo * k * k
+    byts = bytes_per_el * (batch * c * h * w + c * k * k + batch * c * ho * wo)
     return LayerCost(flops, byts, profile, dtype)
 
 
@@ -240,6 +262,19 @@ def _plan_conv(layer: Layer, cin: int, h: int, w: int, cfg: PlannerConfig,
     return mk(IMPL_XLA, why)
 
 
+def _plan_dwconv(layer: Layer, c: int, h: int, w: int, cfg: PlannerConfig,
+                 mode: ComputeMode) -> LayerPlan:
+    cost = dwconv_cost(c, h, w, layer, cfg.batch,
+                       bytes_per_el=_mode_bytes_per_el(mode),
+                       profile=cfg.profile, dtype=mode_cost_dtype(mode))
+    reason = (f"depthwise: the library's depthwise conv (the map-major kernels "
+              f"compute no grouped conv), AI={cost.arithmetic_intensity:.1f}")
+    if mode is ComputeMode.IMPRECISE_INT8:
+        reason += "; IMPRECISE_INT8 runs bf16 operands on its dequantized int8 weights"
+    return LayerPlan(impl=IMPL_XLA, parallelism=Parallelism.OLP, mode=mode,
+                     reason=reason, vmem_budget=cfg.profile.vmem_budget)
+
+
 def _plan_dense(layer: Layer, in_features: int, cfg: PlannerConfig,
                 mode: ComputeMode, epilogue_ops: int = 0) -> LayerPlan:
     cost = dense_cost(in_features, layer.out_channels, cfg.batch,
@@ -290,6 +325,8 @@ def plan_network(net: NetworkDescription, *,
             cin, h, w = shapes[l.inputs[0]]
             layers[l.name] = _plan_conv(l, cin, h, w, cfg, mode,
                                         epilogue_ops.get(l.name, 0))
+        elif l.kind == "dwconv":
+            layers[l.name] = _plan_dwconv(l, *shapes[l.inputs[0]], cfg, mode)
         elif l.kind == "dense":
             in_features = 1
             for d in shapes[l.inputs[0]]:
@@ -324,7 +361,7 @@ def predict_group_seconds(net: NetworkDescription, plan: ExecutionPlan, *,
         units = [(l.name, l, 0) for l in net.layers]
     out: Dict[str, float] = {}
     for name, anchor, n_epilogue in units:
-        if anchor.kind not in ("conv", "dense"):
+        if anchor.kind not in ("conv", "dense", "dwconv"):
             continue
         lp = plan.for_layer(name)
         dtype = mode_cost_dtype(lp.mode)
@@ -337,6 +374,9 @@ def predict_group_seconds(net: NetworkDescription, plan: ExecutionPlan, *,
             wo = _spatial_out(w, anchor.kernel, anchor.stride, anchor.padding)
             cost = fused_cost(cost, batch * anchor.out_channels * ho * wo,
                               n_epilogue)
+        elif anchor.kind == "dwconv":
+            cost = dwconv_cost(*shapes[anchor.inputs[0]], anchor, batch,
+                               bytes_per_el=bpe, profile=profile, dtype=dtype)
         else:
             in_features = 1
             for d in shapes[anchor.inputs[0]]:
@@ -362,8 +402,9 @@ def autotune_plan(net: NetworkDescription, params, x, plan: ExecutionPlan, *,
     Timings are taken under each layer's current plan mode (the synthesizer
     calls this inside its fixed-point loop, so the last round times the
     shipped modes).  The kernel candidate is dropped for PRECISE layers (the
-    kernels are inexact-only) and for convs whose shared-memory request the
-    profile's budget refuses (rule 1).
+    kernels are inexact-only), for convs whose shared-memory request the
+    profile's budget refuses (rule 1) and for depthwise convs (no kernel
+    computes one).
 
     Under a graph plan each candidate is timed on the fused group
     (``apply_group``, epilogue included), the unit the executor dispatches.
@@ -389,7 +430,8 @@ def autotune_plan(net: NetworkDescription, params, x, plan: ExecutionPlan, *,
         base = plan.for_layer(l.name)
         x_in = acts[l.inputs[0]]
         layer_candidates = list(candidates)
-        if base.mode is ComputeMode.PRECISE and IMPL_KERNEL in layer_candidates:
+        if ((base.mode is ComputeMode.PRECISE or l.kind == "dwconv")
+                and IMPL_KERNEL in layer_candidates):
             layer_candidates.remove(IMPL_KERNEL)
         if (l.kind == "conv" and IMPL_KERNEL in layer_candidates
                 and not fits_vmem(l.kernel, l.stride, base.u, base.mode,

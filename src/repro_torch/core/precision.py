@@ -245,9 +245,12 @@ def quantize_int8(w: torch.Tensor, *, channel_axis: int = 0) -> QuantizedTensor:
 
 
 def weight_channel_axis(kind: str) -> int:
-    """The output-channel axis of a layer kind's weight: OIHW conv -> 0,
-    dense (K, N) -> 1.  Per-channel scales live there, so the int8 flush can
-    fold them in after the int32 sum."""
+    """The output-channel axis of a layer kind's weight: OIHW conv and
+    (C, 1, K, K) dwconv -> 0, dense (K, N) -> 1.  Per-channel scales live
+    there, so the int8 flush can fold them in after the int32 sum (a
+    ``dwconv`` under IMPRECISE_INT8 keeps its int8 weights per channel and
+    computes on them dequantized, bf16 as under RELAXED: no int8 kernel
+    computes a depthwise conv)."""
     return 1 if kind == "dense" else 0
 
 

@@ -4,8 +4,9 @@ The counterpart of ``repro.core.synthesizer``.  Inputs: a
 :class:`NetworkDescription`, its params (a dict of tensors on the device the
 program runs on) and, optionally, a validation set (images, labels).
 
-  0. fold every inference batch norm (``bn``) that follows a conv into
-     that conv's weights and bias, in f32 (:func:`fold_batch_norms`);
+  0. fold every inference batch norm (``bn``) and every layer scale
+     (``scale``) that follows a conv into that conv's weights and bias, in
+     f32 (:func:`fold_batch_norms`, :func:`fold_layer_scales`);
   A. plan: lower to fused groups, then the static planner;
   B. prepare the weights for each layer's compute mode;
   C. with a validation set, the fixed-point loop (plan -> mode probe ->
@@ -53,7 +54,7 @@ from .layout import LANES
 from .mode_selector import ModeSelectionReport, refine_plan
 from .network import NetworkDescription, collect_activations, run_network
 from .parallelism import Parallelism
-from .plan import (ExecutionPlan, IterationRecord, SynthesisReport,
+from .plan import (IMPL_XLA, ExecutionPlan, IterationRecord, SynthesisReport,
                    ValidationRecord, enforce_precise_xla)
 from .planner import PlannerConfig, autotune_plan, plan_network
 from .precision import (MODES_FASTEST_FIRST, ComputeMode, QParams,
@@ -317,8 +318,9 @@ def _prepare_params(net: NetworkDescription, params,
                     modes: Dict[str, ComputeMode]):
     """Stage B: weights cast to each layer's operand type (quantized per
     output channel under IMPRECISE_INT8), biases to f32; a ``bn`` left
-    unfolded keeps its scale and shift in f32.  The map-major reorder
-    happens in the kernel wrappers."""
+    unfolded keeps its scale and shift in f32, a ``layernorm`` its weight
+    and bias, a ``scale`` its factor.  The map-major reorder happens in the
+    kernel wrappers."""
     prepared = {}
     for l in net.param_layers:
         p = dict(params[l.name])
@@ -328,36 +330,37 @@ def _prepare_params(net: NetworkDescription, params,
             p["b"] = p["b"].float()
         prepared[l.name] = p
     for l in net.layers:
-        if l.kind == "bn":
-            prepared[l.name] = {k: params[l.name][k].float() for k in ("w", "b")}
+        if l.kind in ("bn", "layernorm", "scale"):
+            prepared[l.name] = {k: v.float() for k, v in params[l.name].items()}
     return prepared
 
 
-def fold_batch_norms(net: NetworkDescription, params
+def _fold_into_convs(net: NetworkDescription, params, kind: str
                      ) -> Tuple[NetworkDescription, Dict[str, Dict[str, torch.Tensor]], int]:
-    """Fold each ``bn`` into the conv that feeds it alone.
+    """Fold each layer of ``kind`` (``bn``: ``y * w[o] + b[o]``; ``scale``:
+    ``y * w[o]``) into the conv that feeds it alone.
 
-    ``bn`` computes ``y * w[o] + b[o]`` on the conv's ``y = conv(x, W) + c``,
-    so the conv with ``W' = W * w[o]`` and ``c' = c * w + b`` (in f32) gives
-    the same output; the ``bn``'s consumers are rewired to the conv.  A
-    ``bn`` stays a layer where its producer is not a conv or feeds other
-    layers too, and where it ends the network.  Returns the folded
-    network, its params (the input's, with the folded convs' replaced) and
-    the number of ``bn`` layers folded."""
+    On the conv's ``y = conv(x, W) + c`` the layer gives the conv with
+    ``W' = W * w[o]`` and ``c' = c * w + b`` (in f32); the layer's consumers
+    are rewired to the conv.  A layer stays where its producer is not a conv
+    or feeds other layers too, and where it ends the network.  Returns the
+    folded network, its params (the input's, with the folded convs'
+    replaced) and the number of layers folded."""
     consumers: Dict[str, int] = {}
     for l in net.layers:
         for i in l.inputs:
             consumers[i] = consumers.get(i, 0) + 1
     by_name = {l.name: l for l in net.layers}
     out = dict(params)
-    into: Dict[str, str] = {}                 # bn -> the conv it folds into
+    into: Dict[str, str] = {}                 # layer -> the conv it folds into
     for l in net.layers:
-        src = by_name.get(l.inputs[0]) if l.kind == "bn" else None
+        src = by_name.get(l.inputs[0]) if l.kind == kind else None
         if (src is None or src.kind != "conv" or consumers[src.name] != 1
                 or l is net.layers[-1]):
             continue
-        conv, bn = params[src.name], params[l.name]
-        scale, shift = bn["w"].float(), bn["b"].float()
+        conv, p = out[src.name], params[l.name]
+        scale = p["w"].float()
+        shift = p["b"].float() if kind == "bn" else torch.zeros_like(scale)
         bias = conv["b"].float() if src.use_bias and "b" in conv \
             else torch.zeros_like(shift)
         out[src.name] = {"w": conv["w"].float() * scale[:, None, None, None],
@@ -371,6 +374,21 @@ def fold_batch_norms(net: NetworkDescription, params
                                   use_bias=l.use_bias or l.name in convs)
               for l in net.layers if l.name not in into]
     return NetworkDescription(net.name, net.input_shape, layers), out, len(into)
+
+
+def fold_batch_norms(net: NetworkDescription, params
+                     ) -> Tuple[NetworkDescription, Dict[str, Dict[str, torch.Tensor]], int]:
+    """Fold each ``bn`` into the conv that feeds it alone
+    (:func:`_fold_into_convs`): ``W' = W * w[o]``, ``c' = c * w + b``."""
+    return _fold_into_convs(net, params, "bn")
+
+
+def fold_layer_scales(net: NetworkDescription, params
+                      ) -> Tuple[NetworkDescription, Dict[str, Dict[str, torch.Tensor]], int]:
+    """Fold each layer scale (``scale``, ``x * g[c]``) into the conv that
+    feeds it alone (:func:`_fold_into_convs`): ``W' = W * g[o]``,
+    ``c' = c * g``."""
+    return _fold_into_convs(net, params, "scale")
 
 
 def _autotune(net: NetworkDescription, params, x,
@@ -517,14 +535,16 @@ def synthesize(net: NetworkDescription,
             _t.event("synthesis.artifact_put_failed", net=net.name,
                      error=str(e))
 
-    # Stage 0: batch norms folded into their convs (with ``plan=`` the
-    # network runs as given, since the plan names its layers).
-    n_bn = sum(l.kind == "bn" for l in net.layers)
-    if plan is None and n_bn:
-        with _t.span("synthesis.fold_bn", net=net.name, bn=n_bn) as span:
-            net, params, folded = fold_batch_norms(net, params)
-            if span is not None:
-                span.attrs["folded"] = folded
+    # Stage 0: batch norms and layer scales folded into their convs (with
+    # ``plan=`` the network runs as given, since the plan names its layers).
+    for kind, fold in (("bn", fold_batch_norms), ("scale", fold_layer_scales)):
+        n_met = sum(l.kind == kind for l in net.layers)
+        if plan is None and n_met:
+            with _t.span(f"synthesis.fold_{kind}", net=net.name,
+                         **{kind: n_met}) as span:
+                net, params, folded = fold(net, params)
+                if span is not None:
+                    span.attrs["folded"] = folded
 
     # Stage A.
     if plan is None:
@@ -536,6 +556,10 @@ def synthesize(net: NetworkDescription,
                 span.attrs.update(residual=residual, residual_fused=sum(
                     g.anchor.kind == "add" and g.fused
                     for g in (graph.groups if graph is not None else ())))
+            dwconv = [l.name for l in net.layers if l.kind == "dwconv"]
+            if span is not None and dwconv:
+                span.attrs.update(dwconv=len(dwconv), dwconv_library=sum(
+                    plan.for_layer(n).impl == IMPL_XLA for n in dwconv))
     tune_x = None
     if autotune:
         tune_x = autotune_input if autotune_input is not None else \

@@ -63,6 +63,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "matmul_mapmajor_int8_grid_blocks": (ctypes.c_longlong, [_I] * 3),
         "matmul_mapmajor_int8_block_k": (_I, []),
     },
+    "layernorm_nchw": {
+        "layernorm_nchw_launch": (_I, [_P] * 4 + [_I] * 3 + [ctypes.c_float, _I, _P]),
+        "layernorm_nchw_threads": (_I, []),
+    },
     "row_copier": {
         "row_copier_new": (_P, []),
         "row_copier_free": (None, [_P]),
